@@ -1,0 +1,118 @@
+"""Build and load the hand-written Hopper kernels.
+
+``csrc/*.cu`` compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes. The build happens at first use, into
+``.build/`` beside this file (git ignores it), and is keyed by a hash of the
+sources and flags, so an edited source never loads a stale library. Each C
+entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / ".build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_VP, _I, _LL, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_ulonglong)
+_SIGNATURES = {
+    # in, out, rows, rc, lut, stream
+    "tf_tip5_permute": (_VP, _VP, _LL, _VP, _VP, _VP),
+    # in, out, blocks, threads, leaf, levels, rc, lut, stream
+    "tf_merkle_commit": (_VP, _VP, _LL, _I, _I, _I, _VP, _VP, _VP),
+    # in, out, log_t, log_tc, ncols, nbatch, in strides (b, e, c),
+    # out strides (b, e, c), tw, diag, diag strides (e, c), scale, stream
+    "tf_ntt_local_pass": (_VP, _VP, _I, _I, _LL, _I, _LL, _LL, _LL, _LL, _LL,
+                          _LL, _VP, _VP, _LL, _LL, _ULL, _VP),
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME  # finds the toolkit
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact build exists; returns the .so.
+
+    The compiler's report (``-Xptxas -v``: registers, shared memory and
+    spills per kernel) is kept beside the library, see ``build_log``."""
+    so = _library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def build_log() -> str:
+    path = _library_path().with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+def load():
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.tf_error_string.argtypes = (ctypes.c_int,)
+        lib.tf_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = load().tf_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+def stream_of(t) -> int:
+    """PyTorch's current stream on ``t``'s device, as a pointer value."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,65 @@
+"""Goldilocks arithmetic on host numpy uint64 arrays, for building tables.
+
+The numpy forms of ``twenty_first_tpu/math/gf_numpy.py``'s ``mul`` and
+``powers`` (without its native fast path): numpy has native 64-bit
+integers, so the 128-bit products are formed from 32-bit halves.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+P = np.uint64(0xFFFF_FFFF_0000_0001)
+EPSILON = np.uint64(0xFFFF_FFFF)
+_M32 = np.uint64(0xFFFF_FFFF)
+_S32 = np.uint64(32)
+
+
+def _split(x):
+    return x & _M32, x >> _S32
+
+
+def reduce128(lo, hi):
+    """Reduce lo + hi * 2^64 mod p to canonical form."""
+    with np.errstate(over="ignore"):
+        hi_lo, hi_hi = _split(hi)
+        t = lo - hi_hi
+        t = np.where(lo < hi_hi, t - EPSILON, t)
+        res = t + hi_lo * EPSILON
+        res = np.where(res < t, res + EPSILON, res)
+        return np.where(res >= P, res - P, res)
+
+
+def mul(a, b):
+    """Canonical modular product of uint64 arrays (inputs may be any u64)."""
+    a = np.asarray(a, dtype=np.uint64)
+    b = np.asarray(b, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        a0, a1 = _split(a)
+        b0, b1 = _split(b)
+        ll = a0 * b0
+        lh = a0 * b1
+        hl = a1 * b0
+        hh = a1 * b1
+        # mid = lh + hl, tracking the carry (worth 2^32 at bit 32 => 2^64)
+        mid = lh + hl
+        midc = (mid < lh).astype(np.uint64)
+        lo = ll + (mid << _S32)
+        c = (lo < ll).astype(np.uint64)
+        hi = hh + (mid >> _S32) + (midc << _S32) + c
+    return reduce128(lo, hi)
+
+
+def powers(base: int, n: int) -> np.ndarray:
+    """[1, base, base^2, ..., base^(n-1)] as uint64, by chunk doubling."""
+    out = np.empty(n, dtype=np.uint64)
+    if n == 0:
+        return out
+    out[0] = 1
+    filled = 1
+    while filled < n:
+        take = min(filled, n - filled)
+        step = np.uint64(pow(int(base) % int(P), filled, int(P)))
+        out[filled:filled + take] = mul(out[:take], step)
+        filled += take
+    return out

@@ -1,0 +1,131 @@
+"""Wrapper of the NTT local-pass kernel in ``csrc/ntt.cu``, beside its twin.
+
+The counterpart of ``twenty_first_tpu/ops/ntt_pallas.py``: K3
+``ntt_local_pass`` replaces ``fused_local_pass``. A pass takes a strided
+(B, t, C) view ``x`` and writes, for every batch b and column c, the
+natural-order NTT of length t of ``x[b, :, c]`` into ``out[b, :, c]``,
+times ``diag[k, c]`` and ``scale`` where given. The views' strides are what
+let the four-step passes run without a separate transpose
+(``math/ntt.py``).
+
+A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
+twin. The wrapper counts its launches in ``ntt_local_pass.launches``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..math import gf
+
+#: Longest transform one pass takes (its tile must fit shared memory).
+MAX_LOG_T = 12
+#: log2 of the tile the wrapper aims for, in elements (2^13 * 8 B = 64 KB).
+_TILE_LOG2 = 13
+
+
+def bit_reverse_permutation(log_n: int) -> np.ndarray:
+    """rev[k] = k with its log_n low bits reversed (int64)."""
+    idx = np.arange(1 << log_n, dtype=np.int64)
+    rev = np.zeros_like(idx)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return rev
+
+
+def _log_t(x) -> int:
+    t = x.shape[1]
+    log_t = t.bit_length() - 1
+    if t != 1 << log_t or not 1 <= log_t <= MAX_LOG_T:
+        raise ValueError(f"pass length must be 2^1..2^{MAX_LOG_T}, got {t}")
+    return log_t
+
+
+def _check(x, tw, diag, out):
+    if x.dim() != 3 or x.dtype != torch.int64:
+        raise ValueError(f"x must be a (B, t, C) int64 view, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    t = 1 << _log_t(x)
+    if out.shape != x.shape or out.dtype != x.dtype or out.device != x.device:
+        raise ValueError("out must match x's shape, dtype and device")
+    if (tw.shape != (t - 1,) or tw.dtype != torch.int64
+            or tw.device != x.device or not tw.is_contiguous()):
+        raise ValueError(f"tw must be the contiguous ({t - 1},) int64 stage "
+                         "twiddles on x's device")
+    if diag is not None and (diag.shape != x.shape[1:] or diag.dtype != x.dtype
+                             or diag.device != x.device):
+        raise ValueError(f"diag must be a {tuple(x.shape[1:])} int64 tensor "
+                         "on x's device")
+    same_view = (out.data_ptr() == x.data_ptr()
+                 and out.stride() == x.stride())
+    if (not same_view and out.numel() and x.numel()
+            and out.untyped_storage().data_ptr()
+            == x.untyped_storage().data_ptr()):
+        raise ValueError("out may share x's storage only as x's very view")
+
+
+def ntt_local_pass_plain(x, tw, *, diag=None, scale: int = 1, out=None):
+    """Plain twin of K3: bit-reverse, radix-2 DIT stages, epilogue."""
+    b, t, c = x.shape
+    log_t = t.bit_length() - 1
+    y = x.permute(0, 2, 1).reshape(b * c, t)
+    rev = torch.from_numpy(bit_reverse_permutation(log_t)).to(x.device)
+    y = y[:, rev]
+    for s in range(log_t):
+        m = 1 << s
+        y = y.reshape(b * c, t // (2 * m), 2, m)
+        u = y[:, :, 0, :]
+        v = gf.mul(y[:, :, 1, :], tw[m - 1:2 * m - 1])
+        y = torch.stack([gf.add(u, v), gf.sub(u, v)], dim=2)
+    y = y.reshape(b, c, t).permute(0, 2, 1)
+    if diag is not None:
+        y = gf.mul(y, diag)
+    if scale != 1:
+        y = gf.mul_const(y, scale)
+    if out is None:
+        return y.contiguous()
+    out.copy_(y)
+    return out
+
+
+def ntt_local_pass(x, tw, *, diag=None, scale: int = 1, out=None):
+    """One local pass (see the module docstring); returns ``out``.
+
+    x: (B, t, C) int64 view, any non-negative strides, t = 2^1..2^12.
+    tw: (t - 1,) stage twiddles (``math.ntt.stage_twiddles``).
+    diag: optional (t, C) view multiplied into the output.
+    scale: python int multiplied into the output (1: none).
+    out: (B, t, C) view to write; a new contiguous tensor when None. It
+    shares no storage with x unless it is x itself (each block reads its
+    whole tile before it writes, so in place is safe).
+    """
+    if out is None:
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    _check(x, tw, diag, out)
+    if x.device.type == "cpu":
+        return ntt_local_pass_plain(x, tw, diag=diag, scale=scale, out=out)
+    if not x.is_cuda:
+        raise ValueError(f"no kernel for device {x.device}")
+    nb, _, ncols = x.shape
+    if nb > 65535:
+        raise ValueError(f"at most 65535 batches per pass, got {nb}")
+    if x.numel() == 0:
+        return out
+    log_t = _log_t(x)
+    log_tc = min(max(2, _TILE_LOG2 - log_t), (ncols - 1).bit_length())
+    diag_e, diag_c = diag.stride() if diag is not None else (0, 0)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.tf_ntt_local_pass(
+            x.data_ptr(), out.data_ptr(), log_t, log_tc, ncols, nb,
+            *x.stride(), *out.stride(), tw.data_ptr(),
+            diag.data_ptr() if diag is not None else None, diag_e, diag_c,
+            scale % gf.P, _build.stream_of(x))
+        _build.check(err, "ntt_local_pass")
+    ntt_local_pass.launches += 1
+    return out
+
+
+ntt_local_pass.launches = 0
