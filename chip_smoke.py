@@ -7,10 +7,19 @@ Run from the repository root, with no arguments:
 
 It builds the hand-written kernels from twenty_first_tpu_torch/csrc with
 nvcc, holds each against its plain PyTorch twin on the card (exact
-equality: this is integer field arithmetic), reproduces roots pinned from
-the JAX reference, drives the flagship step (W = 8 trace columns, n = 2^20,
-expansion 4: a 2^22-row LDE + Tip5 Merkle commit) and the entry point, and
-prints one JSON line per phase. The last lines are the card's name and
+equality: this is integer field arithmetic), reproduces values pinned from
+the JAX reference, and drives four paths, each with every launch counter
+set to 0 just before it and read just after:
+
+* the flagship step (W = 8 trace columns, n = 2^20, expansion 4: a
+  2^22-row LDE + Tip5 Merkle commit) and the entry point (K1, K2, K3);
+* the standalone Tip5 batch path: permutation_batch at 2^16 and 2^22
+  states, the T4/T5 entry points, trace, hash_varlen and
+  hash_varlen_ragged (K1 and its trace mode);
+* the NTT pass probe over 2^24 elements (K3 and K4);
+* the ALU probe, chains of lazy field ops (K5).
+
+It prints one JSON line per phase. The last lines are the card's name and
 power limit (as nvidia-smi reports them), the per-kernel JSON line, and
 the device line. Any failure raises: a non-zero exit and no device line.
 It needs a CUDA device and refuses to run without one.
@@ -58,35 +67,129 @@ RAW_SNAPSHOT_OUT5 = [
 ]
 R = (1 << 64) % P
 R_INV = pow(1 << 64, -1, P)
+# JAX's Tip5 trace of the state (0, 1, ..., 15): words 0 and 15 of the input
+# and of the state after each round (tests/test_torch_tip5_batch.py)
+PINNED_TRACE = [
+    [0, 15], [13630782508720194763, 15551061978796482092],
+    [5525363112442782795, 17108779980408342790],
+    [6286105364352512153, 6814426455101604673],
+    [7125984701079541885, 11053828540506304354],
+    [14273019456630489802, 5428520427373770602]]
+# JAX's hash_varlen of varlen_input(length), the lengths of benches/tip5.rs
+PINNED_VARLEN = {
+    10: [17699434666236764568, 3320238358685627466, 14670388502778114617,
+         15124640580562242493, 13459616508061126303],
+    16384: [16886452508315667902, 83234472127536013, 9722233246858496946,
+            1244537966940540853, 6289475567411222966],
+}
+# JAX's hash_varlen_ragged of ragged_inputs(), lengths RAGGED_LENGTHS
+RAGGED_LENGTHS = (0, 1, 9, 10, 11, 64)
+PINNED_RAGGED = [
+    [2335476311349343808, 1307299401243390569, 3414029282375928929,
+     2141465175172981451, 5966553798353564426],
+    [1271158654570114825, 14149102500606193769, 8645048344152756594,
+     5729092036765501860, 14171540440692055883],
+    [4312793584973550932, 17259037804405352560, 15939896489245361072,
+     1015976036173949869, 5341676919131561678],
+    [16899413808137251125, 15770539295182800696, 7436705098154965815,
+     13581316892468170652, 4404376532229351393],
+    [6446733802932522032, 13514753739473363842, 17820163941778736187,
+     13809903202627133257, 9939067491374485512],
+    [10049464000794506436, 4226005468297386872, 7252665957299743622,
+     4543393266712637337, 4346269982479654721],
+]
 
 # the main path's full width: W trace columns of length N, expansion E
 W, N, E = 8, 1 << 20, 4
+# the Tip5 batch path: permutation_batch at the reference's hash_parallel
+# size (benches/tip5.rs) and at the main path's leaf count; the T4/T5 entry
+# points at bench.py's smoke shape; trace; a ragged batch of mixed lengths
+BATCH_STATES = (1 << 16, N * E)
+T45_STATES = 4096
+TRACE_STATES = 1 << 16
+MIXED_INPUTS, MIXED_MAX_LENGTH = 256, 120
+
+# The bound of a kernel's work: the larger of its bytes (each input read
+# once, each output written once) over the memory rate and its integer
+# multiplies over the IMAD rate (SMs x 64 lanes x the maximum SM clock;
+# both rates in probes/timing.py). Multiplies are counted as the fewest
+# 32x32 -> 64-bit products a known algorithm needs, whatever the kernel
+# does: four for a product of two 64-bit words, three for a square; none
+# for a reduction or a product by 2^32 - 1 or 2^-64 mod p (the S-box's
+# Montgomery conversions), which shifts and adds do. A Tip5 round then
+# costs 14 per word for x^7 on 12 words (x^2, x^3, x^6, x^7: two squares,
+# two products) and, for the MDS, two 16-point cyclic convolutions with
+# the fixed column (one per 32-bit half) of MDS_PRODUCTS products each:
+# the CRT tower of the Tip5 reference's mds_cyclomul, with Karatsuba and
+# three-product complex multiplies at its base
+# (tests/test_torch_bounds.py counts them). K1 does 512 for the MDS.
+IMAD_PER_MUL, IMAD_PER_SQUARE = 4, 3
+MDS_PRODUCTS = 41
+IMAD_PER_ROUND = 12 * 2 * (IMAD_PER_SQUARE + IMAD_PER_MUL) + 2 * MDS_PRODUCTS
+IMAD_PER_PERM = 5 * IMAD_PER_ROUND
+NO_LIBRARY = {"library_ms": None,
+              "library": "no PyTorch call computes Goldilocks field "
+                         "arithmetic, a Goldilocks NTT or Tip5"}
+
+
+def varlen_input(length: int) -> np.ndarray:
+    return np.random.default_rng(length).integers(0, P, size=length,
+                                                  dtype=np.uint64)
+
+
+def ragged_inputs() -> list:
+    rng = np.random.default_rng(3)
+    return [rng.integers(0, P, size=n, dtype=np.uint64) for n in RAGGED_LENGTHS]
+
+
+def bound(nbytes: int, imads: int) -> dict:
+    """bound_ms and what sets it, for ``nbytes`` moved and ``imads`` IMADs."""
+    from twenty_first_tpu_torch.probes import timing
+
+    imad_per_s = timing.lane_rate(timing.IMAD_LANES_PER_SM,
+                                  timing.sm_clock_mhz()[1])
+    mem_ms = nbytes / timing.MEMORY_BYTES_PER_S * 1e3
+    ops_ms = imads / imad_per_s * 1e3
+    return {"bound_ms": max(mem_ms, ops_ms),
+            "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+            "bound_bytes": nbytes, "bound_imads": imads}
+
+
+def run_path(counters, fn):
+    """fn() with every counter at 0 just before; (its result, the counts
+    just after, by wrapper name)."""
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    result = fn()
+    torch.cuda.synchronize()
+    return result, {c.__name__: c.launches for c in counters}
+
+
+def require_launched(path: str, launches: dict) -> None:
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"{path}: a kernel of the path never ran: "
+                             f"{launches}")
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_times(fn, reps: int) -> list[float]:
-    """Milliseconds of each of ``reps`` fn() calls by CUDA events, after one
-    warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
-
-
 def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of fn() by CUDA events, after one warm-up call."""
-    return statistics.median(cuda_times(fn, reps))
+    """Median device milliseconds of fn() by CUDA events, after one warm-up
+    call, with the host's launch overheads hidden (probes/timing.py)."""
+    from twenty_first_tpu_torch.probes import timing
+
+    return timing.cuda_ms(fn, reps)
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host milliseconds of fn() up to the device's end, launch
+    overheads included (probes/timing.py)."""
+    from twenty_first_tpu_torch.probes import timing
+
+    return timing.wall_ms(fn, reps)
 
 
 def max_abs_err(got, want) -> float:
@@ -171,11 +274,14 @@ def phase_k1(rng, tables) -> dict:
     err = require_equal("K1 at the path's shape", got,
                         tip5_cuda.tip5_permute_plain(big, *tables))
     ms = cuda_ms(lambda: tip5_cuda.tip5_permute(big, *tables), 10)
+    host_ms = wall_ms(lambda: tip5_cuda.tip5_permute(big, *tables), 10)
     plain_ms = cuda_ms(lambda: tip5_cuda.tip5_permute_plain(big, *tables), 3)
     emit("k1_tip5_permute", states=states.shape[0], snapshot=True,
          shape=[N * E, 16], ms=ms, plain_ms=plain_ms,
          perms_per_s=N * E / (ms * 1e-3))
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
+            "plain_ms": plain_ms,
+            **bound(2 * 128 * N * E, IMAD_PER_PERM * N * E)}
 
 
 def phase_k2(rng, tables) -> dict:
@@ -213,12 +319,16 @@ def phase_k2(rng, tables) -> dict:
     require_equal("K2 first launch at the path's shape", first(),
                   first_plain())
     ms = cuda_ms(first, 10)
+    host_ms = wall_ms(first, 10)
     plain_ms = cuda_ms(first_plain, 3)
     tree_ms = cuda_ms(lambda: tip5_commit.reduce_layers(
         leafs, log_rows, tables=tables), 5)
     emit("k2_merkle_commit", cases=len(cases) + 5, launch_shape=[N * E, 5],
          launch_levels=9, ms=ms, plain_ms=plain_ms, tree_ms=tree_ms)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    perms = N * E - (N * E >> 9)  # 2^21 + 2^20 + ... over 9 levels
+    return {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
+            "plain_ms": plain_ms,
+            **bound(40 * (N * E + (N * E >> 9)), IMAD_PER_PERM * perms)}
 
 
 def phase_k3(rng) -> dict:
@@ -268,6 +378,8 @@ def phase_k3(rng) -> dict:
         ntt_cuda.ntt_local_pass(x, fwd.tw1, diag=fwd.diag),
         ntt_cuda.ntt_local_pass_plain(x, fwd.tw1, diag=fwd.diag))
     ms = cuda_ms(lambda: ntt_cuda.ntt_local_pass(x, fwd.tw1, diag=fwd.diag), 10)
+    host_ms = wall_ms(lambda: ntt_cuda.ntt_local_pass(x, fwd.tw1,
+                                                      diag=fwd.diag), 10)
     plain_ms = cuda_ms(lambda: ntt_cuda.ntt_local_pass_plain(
         x, fwd.tw1, diag=fwd.diag), 3)
     flat = x.reshape(W, N * E)
@@ -276,7 +388,12 @@ def phase_k3(rng) -> dict:
     emit("k3_ntt_local_pass", passes_checked=checked, ntt_sizes=[10, 17, 22],
          shape=list(x.shape), ms=ms, plain_ms=plain_ms,
          ntt_path_ms=ntt_ms, ntt_path_plain_ms=ntt_plain_ms)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    b, t, c = x.shape
+    products = b * c * (t // 2) * log_n2 + b * t * c  # butterflies + diagonal
+    return {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
+            "plain_ms": plain_ms,
+            **bound(16 * x.numel() + 8 * fwd.diag.numel(),
+                    IMAD_PER_MUL * products)}
 
 
 def phase_pinned_roots() -> None:
@@ -325,33 +442,31 @@ def phase_slice(counters) -> dict:
     from twenty_first_tpu_torch.math import gf
     from twenty_first_tpu_torch.parallel import pipeline
 
-    step = pipeline.TraceLdeCommit(W, N, E, device="cuda")
+    step = pipeline.TraceLdeCommit(W, N, E)
     trace = random_field(np.random.default_rng(2026), (W, N))
-    torch.cuda.synchronize()
     # the main path, once, with every launch counter at 0
-    for c in counters:
-        c.launches = 0
-    root = step(trace)
-    torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the main path never ran: {launches}")
+    root, launches = run_path(counters, lambda: step(trace))
+    require_launched("slice", launches)
     vals = gf.to_u64(root)
     if root.shape != (1, 5) or not (vals < np.uint64(P)).all():
         raise AssertionError(f"bad root {vals.tolist()}")
     require_equal("slice root: kernels vs plain on the card", root,
                   step(trace, plain=True))
+    from twenty_first_tpu_torch.probes import timing
+
     torch.cuda.reset_peak_memory_stats()
-    times = sorted(cuda_times(lambda: step(trace), 21))
-    ms = statistics.median(times)
+    times = sorted(timing.wall_times(lambda: step(trace), 21))
+    wall = statistics.median(times)
     peak = torch.cuda.max_memory_allocated()
+    device_ms = cuda_ms(lambda: step(trace), 21)
     torch.cuda.reset_peak_memory_stats()
-    plain_ms = cuda_ms(lambda: step(trace, plain=True), 3)
+    plain_ms = wall_ms(lambda: step(trace, plain=True), 3)
     plain_peak = torch.cuda.max_memory_allocated()
     emit("slice_lde_commit", w=W, n=N, expansion=E, rows=N * E,
-         root=vals[0].tolist(), launches=launches, ms=ms, runs=len(times),
-         ms_min=times[0], ms_max=times[-1], plain_ms=plain_ms,
-         max_memory_allocated=peak, plain_max_memory_allocated=plain_peak)
+         root=vals[0].tolist(), launches=launches, wall_ms=wall,
+         runs=len(times), wall_ms_min=times[0], wall_ms_max=times[-1],
+         ms=device_ms, plain_wall_ms=plain_ms, max_memory_allocated=peak,
+         plain_max_memory_allocated=plain_peak)
     emit("slice_profile", **device_breakdown(lambda: step(trace)))
     return launches
 
@@ -360,13 +475,234 @@ def phase_entry() -> None:
     from twenty_first_tpu_torch.entry import entry
     from twenty_first_tpu_torch.math import gf
 
-    fn, args = entry("cuda")
+    fn, args = entry()  # on the card by default
+    if args[0].device.type != "cuda":
+        raise AssertionError(f"entry() put its trace on {args[0].device}")
     root = fn(*args)
     require_equal("entry root vs plain", root, fn(*args, plain=True))
     if gf.to_u64(root).tolist() != [ENTRY_ROOT]:
         raise AssertionError(f"entry root {gf.to_u64(root).tolist()} != "
                              f"JAX reference {ENTRY_ROOT}")
     emit("entry", shape=list(args[0].shape), root=ENTRY_ROOT, ok=True)
+
+
+def snapshot_state():
+    """The Tip5 reference snapshot's input as a canonical (1, 16) state."""
+    return np.array([[(raw * R_INV) % P for raw in RAW_SNAPSHOT_IN]],
+                    dtype=np.uint64)
+
+
+def require_snapshot(what: str, states_out) -> None:
+    """Row 0 of ``states_out`` must be the reference snapshot's output."""
+    from twenty_first_tpu_torch.math import gf
+
+    out = np.asarray(states_out if isinstance(states_out, np.ndarray)
+                     else gf.to_u64(states_out[:1]))[0, :5]
+    if [(int(v) * R) % P for v in out] != RAW_SNAPSHOT_OUT5:
+        raise AssertionError(f"{what} misses the Tip5 reference snapshot")
+
+
+def phase_tip5_batch(rng, tables) -> dict:
+    """The standalone Tip5 batch path: K1 and its trace mode."""
+    from twenty_first_tpu_torch.math import gf
+    from twenty_first_tpu_torch.ops import tip5_batch, tip5_cuda
+    from twenty_first_tpu_torch.tip5 import permutation as tperm
+
+    def batch(n):  # row 0: the snapshot state
+        x = rng.integers(0, P, size=(n, 16), dtype=np.uint64)
+        x[0] = snapshot_state()[0]
+        return x
+
+    small, big = (batch(n) for n in BATCH_STATES)
+    t45 = batch(T45_STATES)
+    small_d, big_d, t45_d = (gf.from_u64(v).cuda() for v in (small, big, t45))
+    trace_in = rng.integers(0, P, size=(TRACE_STATES, 16), dtype=np.uint64)
+    trace_in[0] = np.arange(16)
+    trace_d = gf.from_u64(trace_in).cuda()
+    mixed = [rng.integers(0, P, size=int(n), dtype=np.uint64)
+             for n in rng.integers(0, MIXED_MAX_LENGTH + 1,
+                                   size=MIXED_INPUTS)]
+    t4t5 = {"permutation": lambda: tip5_batch.permutation(t45_d),
+            "permutation_values": lambda: tip5_batch.permutation_values(t45),
+            "permutation_dense": lambda: tip5_batch.permutation_dense(t45_d),
+            "permutation_dense_nogrid":
+                lambda: tip5_batch.permutation_dense_nogrid(t45_d),
+            "permutation_dense_values":
+                lambda: tip5_batch.permutation_dense_values(t45)}
+
+    def path():
+        return {"batch_small": tperm.permutation_batch(small_d),
+                "batch_big": tperm.permutation_batch(big_d),
+                **{name: fn() for name, fn in t4t5.items()},
+                "trace": tperm.trace(trace_d),
+                **{f"varlen_{n}": tperm.hash_varlen(varlen_input(n))
+                   for n in PINNED_VARLEN},
+                "ragged_pinned": tperm.hash_varlen_ragged(ragged_inputs()),
+                "ragged_mixed": tperm.hash_varlen_ragged(mixed)}
+
+    got, launches = run_path((tip5_cuda.tip5_permute, tip5_cuda.tip5_trace),
+                             path)
+    require_launched("tip5_batch", launches)
+    # against the plain twins on the card, at reduced sizes where plain
+    # sponges would be long
+    err = require_equal("permutation_batch (small)", got["batch_small"],
+                        tperm.permutation_batch(small_d, plain=True))
+    for name in ("batch_small", "batch_big"):
+        require_snapshot(name, got[name])
+    plain45 = tip5_cuda.tip5_permute_plain(t45_d, *tables)
+    for name in t4t5:
+        out = got[name]
+        out = gf.from_u64(out).cuda() if isinstance(out, np.ndarray) else out
+        require_equal(f"T4/T5 {name}", out, plain45)
+        require_snapshot(name, out)
+    require_equal("trace", got["trace"], tperm.trace(trace_d, plain=True))
+    rows = gf.to_u64(got["trace"][0])
+    if [[int(r[0]), int(r[15])] for r in rows] != PINNED_TRACE:
+        raise AssertionError("trace misses the JAX-pinned trace")
+    for n, want in PINNED_VARLEN.items():
+        if got[f"varlen_{n}"].tolist() != want:
+            raise AssertionError(f"hash_varlen({n}) misses the JAX pin")
+    short = varlen_input(1000)
+    if not np.array_equal(tperm.hash_varlen(short),
+                          tperm.hash_varlen(short, plain=True)):
+        raise AssertionError("hash_varlen(1000) kernel != plain")
+    if got["ragged_pinned"].tolist() != PINNED_RAGGED:
+        raise AssertionError("hash_varlen_ragged misses the JAX pins")
+    if not np.array_equal(got["ragged_mixed"],
+                          tperm.hash_varlen_ragged(mixed, plain=True)):
+        raise AssertionError("hash_varlen_ragged (mixed) kernel != plain")
+    # timings, on the kernel path only
+    ms = {"batch_small": cuda_ms(lambda: tperm.permutation_batch(small_d), 10),
+          "batch_big": cuda_ms(lambda: tperm.permutation_batch(big_d), 10),
+          "t4_permutation": cuda_ms(t4t5["permutation"], 10),
+          "trace": cuda_ms(lambda: tperm.trace(trace_d), 10)}
+    trace_wall_ms = wall_ms(lambda: tperm.trace(trace_d), 10)
+    trace_plain_ms = cuda_ms(lambda: tperm.trace(trace_d, plain=True), 3)
+    ms["t4_permutation_plain"] = cuda_ms(
+        lambda: tip5_cuda.tip5_permute_plain(t45_d, *tables), 3)
+    host_ms = {
+        "varlen_10": wall_ms(lambda: tperm.hash_varlen(varlen_input(10)), 5),
+        "varlen_16384": wall_ms(lambda: tperm.hash_varlen(
+            varlen_input(16384)), 5),
+        "ragged_mixed": wall_ms(lambda: tperm.hash_varlen_ragged(mixed), 5)}
+    before = tip5_cuda.tip5_permute.launches
+    tperm.hash_varlen(varlen_input(16384))
+    varlen_launches = tip5_cuda.tip5_permute.launches - before
+    emit("tip5_batch", launches=launches, states=list(BATCH_STATES),
+         t45_states=T45_STATES, trace_states=TRACE_STATES,
+         mixed_inputs=MIXED_INPUTS, ms=ms, host_ms=host_ms,
+         hash_varlen_16384_launches=varlen_launches,
+         perms_per_s={n: n / (ms[k] * 1e-3) for n, k in
+                      zip(BATCH_STATES, ("batch_small", "batch_big"))},
+         pinned=["snapshot", "trace", "varlen_10", "varlen_16384", "ragged"])
+    return {"launches": launches, "max_abs_err": err,
+            "trace": {"launches": launches["tip5_trace"],
+                      "ms": ms["trace"], "wall_ms": trace_wall_ms,
+                      "plain_ms": trace_plain_ms,
+                      **bound(8 * (16 + 96) * TRACE_STATES,
+                              IMAD_PER_PERM * TRACE_STATES)}}
+
+
+def phase_probe_pass(rng) -> dict:
+    """K4 against its twin, then the pass probe's path (K3 and K4)."""
+    from twenty_first_tpu_torch.math import gf, ntt
+    from twenty_first_tpu_torch.ops import ntt_cuda, probe_cuda
+    from twenty_first_tpu_torch.probes import pass_probe
+
+    checked = 0
+    for log_t in range(1, 13):
+        t = 1 << log_t
+        tw = gf.from_u64(ntt.stage_twiddles(log_t, log_t % 2 == 1)).cuda()
+        for layout in ("cols_fast", "elems_fast"):
+            if layout == "cols_fast":
+                x = random_field(rng, (t, 37))
+            else:
+                x = random_field(rng, (37, t)).t()
+            for stage in range(log_t):
+                for rev in ((True, False) if stage == 0 else (False,)):
+                    require_equal(
+                        f"K4 log_t={log_t} {layout} stage={stage} rev={rev}",
+                        probe_cuda.ntt_stage(x, tw, stage, bit_reverse=rev),
+                        probe_cuda.ntt_stage_plain(x, tw, stage,
+                                                   bit_reverse=rev))
+                    checked += 1
+            inplace = x.clone()
+            probe_cuda.ntt_stage(inplace, tw, log_t - 1, out=inplace)
+            require_equal(f"K4 in place log_t={log_t} {layout}", inplace,
+                          probe_cuda.ntt_stage_plain(x, tw, log_t - 1))
+            require_equal(f"K4 chain == pass log_t={log_t} {layout}",
+                          pass_probe.run_pass(x, tw, "rt", 0),
+                          pass_probe.plain_pass(x, tw))
+    # the probe's path: every spec over 2^24 elements
+    results, launches = run_path(
+        (ntt_cuda.ntt_local_pass, probe_cuda.ntt_stage),
+        lambda: pass_probe.run(pass_probe.DEFAULT_SPECS))
+    require_launched("probe_pass", launches)
+    # K4 alone at the probe's shape: one middle stage of t = 2^12
+    x = pass_probe.make_input(12)
+    tw = gf.from_u64(ntt.stage_twiddles(12, False)).cuda()
+    err = require_equal("K4 at (2^12, 2^12)", probe_cuda.ntt_stage(x, tw, 6),
+                        probe_cuda.ntt_stage_plain(x, tw, 6))
+    ms = cuda_ms(lambda: probe_cuda.ntt_stage(x, tw, 6), 10)
+    host_ms = wall_ms(lambda: probe_cuda.ntt_stage(x, tw, 6), 10)
+    plain_ms = cuda_ms(lambda: probe_cuda.ntt_stage_plain(x, tw, 6), 3)
+    ng = {r["spec"]: r["launches_per_pass"] for r in results
+          if r["variant"] == "ng"}
+    emit("probe_pass", stages_checked=checked, launches=launches,
+         k4_stage_ms=ms, k4_stage_plain_ms=plain_ms,
+         specs={r["spec"]: {k: r[k] for k in ("ms", "wall_ms", "gelems_per_s",
+                                              "tb_per_s", "launches_per_pass")}
+                for r in results})
+    return {"launches": launches, "k3_per_tile_launches": ng,
+            "k4": {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
+                   "plain_ms": plain_ms,
+                   **bound(16 * x.numel(), IMAD_PER_MUL * x.numel() // 2)}}
+
+
+def phase_probe_alu(rng) -> dict:
+    """K5 against its twin, then the ALU probe's path."""
+    from twenty_first_tpu_torch.math import gf
+    from twenty_first_tpu_torch.ops import probe_cuda
+    from twenty_first_tpu_torch.probes import alu_probe
+
+    edges = np.array([0, 1, P - 1, P, (1 << 32) - 1, 1 << 32, (1 << 64) - 1],
+                     dtype=np.uint64)
+    a = rng.integers(0, 1 << 64, size=(512, 128), dtype=np.uint64,
+                     endpoint=False)
+    b = rng.integers(0, 1 << 64, size=(512, 128), dtype=np.uint64,
+                     endpoint=False)
+    a[0, :49], b[0, :49] = np.repeat(edges, 7), np.tile(edges, 7)
+    a, b = gf.from_u64(a).cuda(), gf.from_u64(b).cuda()
+    for op in probe_cuda.CHAIN_OPS:
+        for k in (1, 2, 16):
+            require_equal(f"K5 {op} k={k}", probe_cuda.gf_chain(a, b, op, k),
+                          probe_cuda.gf_chain_plain(a, b, op, k))
+    results, launches = run_path((probe_cuda.gf_chain,), alu_probe.run)
+    require_launched("probe_alu", launches)
+    # K5 alone at the full shape: one mul_lazy chain of K_HI steps
+    fa, fb = alu_probe.operands(alu_probe.FULL_SHAPE)
+    k = alu_probe.K_HI
+    err = require_equal(f"K5 mul_lazy k={k} at 2^22",
+                        probe_cuda.gf_chain(fa, fb, "mul_lazy", k),
+                        probe_cuda.gf_chain_plain(fa, fb, "mul_lazy", k))
+    ms = cuda_ms(lambda: probe_cuda.gf_chain(fa, fb, "mul_lazy", k), 10)
+    host_ms = wall_ms(lambda: probe_cuda.gf_chain(fa, fb, "mul_lazy", k), 10)
+    plain_ms = cuda_ms(lambda: probe_cuda.gf_chain_plain(fa, fb, "mul_lazy",
+                                                        k), 3)
+    sass = {r["op"]: r["sass"] for r in results}
+    emit("probe_alu", launches=launches, k5_ms=ms, k5_plain_ms=plain_ms,
+         sass=sass, per_step={f"{r['op']} {r['shape']}": {
+             key: r.get(key) for key in (
+                 "ms_per_step", "gops_per_s", "g_instructions_per_s",
+                 "share_of_dispatch_rate", "g_imad_per_s",
+                 "share_of_imad_rate",
+                 "plain_over_kernel")}
+             for r in results})
+    n = fa.numel()
+    return {"launches": launches,
+            "k5": {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
+                   "plain_ms": plain_ms,
+                   **bound(24 * n, IMAD_PER_MUL * k * n)}}
 
 
 def main() -> None:
@@ -376,7 +712,7 @@ def main() -> None:
     from twenty_first_tpu_torch.tip5.permutation import tip5_tables
 
     rng = np.random.default_rng(0)
-    tables = tip5_tables("cuda")
+    tables = tip5_tables()
     k1 = phase_k1(rng, tables)
     k2 = phase_k2(rng, tables)
     k3 = phase_k3(rng)
@@ -385,19 +721,46 @@ def main() -> None:
                 ntt_cuda.ntt_local_pass)
     launches = phase_slice(counters)
     phase_entry()
+    batch = phase_tip5_batch(rng, tables)
+    probe_pass = phase_probe_pass(rng)
+    probe_alu = phase_probe_alu(rng)
+    pallas = "twenty_first_tpu/ops/tip5_pallas.py"
     kernels = [
         {"name": "tip5_permute", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/tip5.cu",
-         "replaces": "twenty_first_tpu/ops/tip5_pallas.py:252",
-         "launches": launches["tip5_permute"], **k1},
+         "replaces": f"{pallas}:252 (T1); {pallas}:102 (T4); "
+                     f"{pallas}:383 (T5)",
+         "launches": launches["tip5_permute"]
+                     + batch["launches"]["tip5_permute"],
+         "launches_by_path": {"slice": launches["tip5_permute"],
+                              "tip5_batch": batch["launches"]["tip5_permute"]},
+         **k1, **NO_LIBRARY, "trace_mode": batch["trace"]},
         {"name": "merkle_commit", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/tip5.cu",
-         "replaces": "twenty_first_tpu/ops/tip5_pallas.py:262",
-         "launches": launches["merkle_commit"], **k2},
+         "replaces": f"{pallas}:262 (T2)",
+         "launches": launches["merkle_commit"], **k2, **NO_LIBRARY},
         {"name": "ntt_local_pass", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/ntt.cu",
-         "replaces": "twenty_first_tpu/ops/ntt_pallas.py:47",
-         "launches": launches["ntt_local_pass"], **k3},
+         "replaces": "twenty_first_tpu/ops/ntt_pallas.py:47 (T3); "
+                     "scripts/prof_pallas_pass.py:53 (T6); "
+                     "scripts/prof_pallas_pass.py:110 (T7)",
+         "launches": launches["ntt_local_pass"]
+                     + probe_pass["launches"]["ntt_local_pass"],
+         "launches_by_path": {
+             "slice": launches["ntt_local_pass"],
+             "probe_pass": probe_pass["launches"]["ntt_local_pass"]},
+         "t7_launches_per_pass": probe_pass["k3_per_tile_launches"],
+         **k3, **NO_LIBRARY},
+        {"name": "ntt_stage", "route": "cuda",
+         "source": "twenty_first_tpu_torch/csrc/probes.cu",
+         "replaces": "scripts/prof_pallas_pass.py:53 (T6 roundtrip)",
+         "launches": probe_pass["launches"]["ntt_stage"],
+         **probe_pass["k4"], **NO_LIBRARY},
+        {"name": "gf_chain", "route": "cuda",
+         "source": "twenty_first_tpu_torch/csrc/probes.cu",
+         "replaces": "scripts/pallas_alu_probe.py:38 (T8)",
+         "launches": probe_alu["launches"]["gf_chain"],
+         **probe_alu["k5"], **NO_LIBRARY},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -40,7 +40,7 @@ def test_commit_states_matches_jax(rows, layers):
 def test_merkle_commit_twin_is_one_launch():
     """merkle_commit's twin: leaf mode = permute + `levels` pair levels,
     pair mode = `levels` pair levels; independent of the block size."""
-    rc, lut = tip5_tables()
+    rc, lut = tip5_tables("cpu")
     states = gf.from_u64(RNG.integers(0, P, size=(64, 16), dtype=np.uint64))
     leaf = tip5_cuda.merkle_commit(states, True, 3, 16, rc, lut)
     assert leaf.shape == (8, 5)
@@ -59,7 +59,7 @@ def test_merkle_commit_twin_is_one_launch():
     (True, 1, 512, 512),   # above the largest block
 ])
 def test_merkle_commit_rejects_bad_launch(leaf, levels, threads, rows):
-    rc, lut = tip5_tables()
+    rc, lut = tip5_tables("cpu")
     x = torch.zeros(rows, 16 if leaf else 5, dtype=torch.int64)
     with pytest.raises(ValueError):
         tip5_cuda.merkle_commit(x, leaf, levels, threads, rc, lut)

@@ -16,8 +16,11 @@ from twenty_first_tpu.math.b_field_element import P
 from twenty_first_tpu.parallel import dist_merkle
 from twenty_first_tpu.tip5 import permutation as jperm
 from twenty_first_tpu_torch.math import gf, ntt
-from twenty_first_tpu_torch.ops import ntt_cuda, tip5_commit, tip5_cuda
+from twenty_first_tpu_torch.ops import (ntt_cuda, probe_cuda, tip5_batch,
+                                        tip5_commit, tip5_cuda)
 from twenty_first_tpu_torch.parallel import pipeline
+from twenty_first_tpu_torch.probes import pass_probe
+from twenty_first_tpu_torch.tip5 import permutation as tperm
 from twenty_first_tpu_torch.tip5.permutation import tip5_tables
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +86,61 @@ def test_pipeline_root_matches_pinned_jax_root(cuda):
                                               dtype=np.uint64)
     got = pipeline.trace_lde_commit(gf.from_u64(trace).to(cuda))
     assert gf.to_u64(got).tolist() == [chip_smoke.PINNED_ROOTS[64]]
+
+
+def test_k1_trace_mode_matches_jax(cuda):
+    states = _rand((300, 16))
+    before = tip5_cuda.tip5_trace.launches
+    got = tperm.trace_values(states)
+    assert tip5_cuda.tip5_trace.launches == before + 1
+    np.testing.assert_array_equal(got, jperm.trace_values(states))
+
+
+def test_batch_entry_points_match_jax(cuda):
+    states = _rand((4096, 16))
+    want = jperm.permutation_values(states)
+    np.testing.assert_array_equal(tperm.permutation_batch_values(states), want)
+    np.testing.assert_array_equal(tip5_batch.permutation_values(states), want)
+    np.testing.assert_array_equal(tip5_batch.permutation_dense_values(states),
+                                  want)
+
+
+def test_hash_varlen_ragged_matches_jax(cuda):
+    inputs = [_rand(n) for n in (0, 1, 9, 10, 11, 64, 200)]
+    before = tip5_cuda.tip5_permute.launches
+    got = tperm.hash_varlen_ragged(inputs)
+    assert tip5_cuda.tip5_permute.launches - before == 21  # 201 words + pad
+    np.testing.assert_array_equal(got, jperm.hash_varlen_ragged(inputs))
+    np.testing.assert_array_equal(tperm.hash_varlen(inputs[-1]),
+                                  jperm.hash_varlen(inputs[-1]))
+
+
+@pytest.mark.parametrize("variant", pass_probe.VARIANTS)
+def test_pass_probe_matches_jax_local_pass(cuda, variant):
+    x = _rand((1 << 8, 64))
+    tw = gf.from_u64(ntt.stage_twiddles(8, False)).to(cuda)
+    got = pass_probe.run_pass(gf.from_u64(x).to(cuda), tw, variant, tc=16)
+    want = jgf.from_limbs(jntt._local_pass(
+        tuple(np.asarray(v) for v in jgf.to_limbs(x)), 8, False))
+    np.testing.assert_array_equal(gf.to_u64(got), want)
+
+
+@pytest.mark.parametrize("op", sorted(probe_cuda.CHAIN_OPS))
+def test_k5_matches_jax_probe(cuda, op):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / \
+        "pallas_alu_probe.py"
+    spec = importlib.util.spec_from_file_location("pallas_alu_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    a = RNG.integers(0, 1 << 64, size=(64, 128), dtype=np.uint64,
+                     endpoint=False)
+    b = RNG.integers(0, 1 << 64, size=(64, 128), dtype=np.uint64,
+                     endpoint=False)
+    want = jgf.from_limbs(probe.make_xla(getattr(jgf, op), 7)(
+        *jgf.to_limbs(a), *jgf.to_limbs(b)))
+    got = probe_cuda.gf_chain(gf.from_u64(a).to(cuda), gf.from_u64(b).to(cuda),
+                              op, 7)
+    np.testing.assert_array_equal(gf.to_u64(got), want)

@@ -147,6 +147,70 @@ def test_reduce128_matches_jax():
     assert got.tolist() == [v % P for v in full]
 
 
+# operands of the lazy forms: any u64, the words where their fix-ups turn
+LAZY_EDGES = [0, 1, P - 1, P, (1 << 32) - 1, 1 << 32, (1 << 64) - 1]
+
+
+def _lazy_operands(seed: int):
+    rng = np.random.default_rng(seed)
+    edge = np.array(LAZY_EDGES, dtype=np.uint64)
+    rand = [rng.integers(0, 1 << 64, size=512, dtype=np.uint64,
+                         endpoint=False) for _ in range(2)]
+    return (np.concatenate([np.repeat(edge, len(edge)), rand[0]]),
+            np.concatenate([np.tile(edge, len(edge)), rand[1]]))
+
+
+@pytest.mark.parametrize("name", ["mul_lazy", "add_lazy", "sub_lazy"])
+def test_lazy_binary_ops_match_jax(name):
+    """The same raw words as JAX, not just the same residues."""
+    a, b = _lazy_operands(9)
+    got = _port(getattr(gf, name), a, b)
+    np.testing.assert_array_equal(got, _jax(getattr(jgf, name), a, b))
+    python = {"mul_lazy": lambda x, y: x * y, "add_lazy": lambda x, y: x + y,
+              "sub_lazy": lambda x, y: x - y}[name]
+    assert [int(g) % P for g in got] == [python(int(x), int(y)) % P
+                                         for x, y in zip(a, b)]
+
+
+def test_reduce128_lazy_matches_jax():
+    rng = np.random.default_rng(10)
+    words = rng.integers(0, 1 << 32, size=(4, 300), dtype=np.uint64)
+    words[:, :4] = 0xFFFF_FFFF
+    words[3, 4:8] = 0
+    words[2, 8:12] = 0
+    x0, x1, x2, x3 = (w.astype(np.uint32) for w in words)
+    want = jgf.from_limbs(jgf.reduce128_lazy(x0, x1, x2, x3))
+    lo = gf.from_u64(words[0] | (words[1] << np.uint64(32)))
+    hi = gf.from_u64(words[2] | (words[3] << np.uint64(32)))
+    np.testing.assert_array_equal(gf.to_u64(gf.reduce128_lazy(lo, hi)), want)
+
+
+@pytest.mark.parametrize("negate", [False, True])
+@pytest.mark.parametrize("e", [1, 24, 31, 32, 33, 48, 63, 64, 65, 72, 95])
+def test_mul_by_pow2_lazy_matches_jax(e, negate):
+    a, _ = _lazy_operands(11)
+    got = _port(lambda x: gf.mul_by_pow2_lazy(x, e, negate), a)
+    np.testing.assert_array_equal(
+        got, _jax(lambda x: jgf.mul_by_pow2_lazy(x, e, negate), a))
+    sign = -1 if negate else 1
+    assert [int(g) % P for g in got] == [sign * int(x) * (1 << e) % P
+                                         for x in a]
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_mul_by_i_lazy_matches_jax(inverse):
+    a, _ = _lazy_operands(12)
+    np.testing.assert_array_equal(
+        _port(lambda x: gf.mul_by_i_lazy(x, inverse), a),
+        _jax(lambda x: jgf.mul_by_i_lazy(x, inverse), a))
+
+
+def test_mul_by_pow2_lazy_rejects_bad_shift():
+    for e in (0, 96):
+        with pytest.raises(ValueError):
+            gf.mul_by_pow2_lazy(gf.from_u64([1]), e)
+
+
 def test_fixed_mul_golden():
     got = gf.mul(gf.from_u64([2779336007265862836]),
                  gf.from_u64([8146517303801474933]))
@@ -158,9 +222,17 @@ def test_port_never_imports_jax():
     a fresh interpreter, and no source line of the port imports jax."""
     mods = ["twenty_first_tpu_torch", "twenty_first_tpu_torch.entry",
             "twenty_first_tpu_torch.parallel.pipeline",
+            "twenty_first_tpu_torch.tip5.permutation",
+            "twenty_first_tpu_torch.math.gf",
             "twenty_first_tpu_torch.ops.tip5_commit",
             "twenty_first_tpu_torch.ops.ntt_cuda",
             "twenty_first_tpu_torch.ops.tip5_cuda",
+            "twenty_first_tpu_torch.ops.tip5_batch",
+            "twenty_first_tpu_torch.ops.probe_cuda",
+            "twenty_first_tpu_torch.probes",
+            "twenty_first_tpu_torch.probes.timing",
+            "twenty_first_tpu_torch.probes.pass_probe",
+            "twenty_first_tpu_torch.probes.alu_probe",
             "twenty_first_tpu_torch._build", "chip_smoke"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' "

@@ -44,9 +44,9 @@ def test_ntt_matches_jax(log_n):
     """Single pass up to 2^12, four-step above; 2^17 is the JAX package's
     four-step threshold."""
     x = _rand((2, 1 << log_n))
-    y = ntt.ntt_values(x)
+    y = ntt.ntt_values(x, device="cpu")
     np.testing.assert_array_equal(y, jntt.ntt_values(x))
-    z = ntt.intt_values(y)
+    z = ntt.intt_values(y, device="cpu")
     np.testing.assert_array_equal(z, jntt.intt_values(y))
     np.testing.assert_array_equal(z, x)
 
@@ -59,7 +59,7 @@ def test_ntt_matches_jax_device_path():
 
     dev = jgf.from_limbs(jntt.ntt_limbs(jgf.to_limbs(x)))
     np.testing.assert_array_equal(dev, want)
-    np.testing.assert_array_equal(ntt.ntt_values(x), dev)
+    np.testing.assert_array_equal(ntt.ntt_values(x, device="cpu"), dev)
 
 
 def test_ntt_golden_vector():
@@ -82,12 +82,12 @@ def test_ntt_rejects_bad_lengths_and_tables():
     with pytest.raises(ValueError):
         ntt.ntt(torch.zeros(2, 12, dtype=torch.int64))
     with pytest.raises(ValueError):
-        ntt.ntt_tables(1 << 25)
+        ntt.ntt_tables(1 << 25, device="cpu")
     x = gf.from_u64(_rand((1, 64)))
     with pytest.raises(ValueError):
-        ntt.ntt(x, tables=ntt.ntt_tables(64, inverse=True))
+        ntt.ntt(x, tables=ntt.ntt_tables(64, inverse=True, device="cpu"))
     with pytest.raises(ValueError):
-        ntt.ntt(x, tables=ntt.ntt_tables(128))
+        ntt.ntt(x, tables=ntt.ntt_tables(128, device="cpu"))
 
 
 @pytest.mark.parametrize("layout", ["cols_fast", "elems_fast"])

@@ -60,7 +60,7 @@ def test_root_matches_host_oracle(w, n, expansion, offset):
 
 
 def test_module_holds_tables_and_reuses_them():
-    step = pipeline.TraceLdeCommit(4, 1 << 13, 2)
+    step = pipeline.TraceLdeCommit(4, 1 << 13, 2, device="cpu")
     buffers = dict(step.named_buffers())
     for name in ("inv_tw1", "inv_tw2", "inv_diag", "fwd_tw1", "fwd_tw2",
                  "fwd_diag", "offset_powers", "round_constants",
@@ -78,12 +78,12 @@ def test_module_holds_tables_and_reuses_them():
 
 def test_module_rejects_bad_shapes():
     with pytest.raises(ValueError):
-        pipeline.TraceLdeCommit(11, 16)
+        pipeline.TraceLdeCommit(11, 16, device="cpu")
     with pytest.raises(ValueError):
-        pipeline.TraceLdeCommit(4, 12)
+        pipeline.TraceLdeCommit(4, 12, device="cpu")
     with pytest.raises(ValueError):
-        pipeline.TraceLdeCommit(4, 16, expansion=3)
-    step = pipeline.TraceLdeCommit(4, 16)
+        pipeline.TraceLdeCommit(4, 16, expansion=3, device="cpu")
+    step = pipeline.TraceLdeCommit(4, 16, device="cpu")
     with pytest.raises(ValueError):
         step(torch.zeros(4, 32, dtype=torch.int64))
     with pytest.raises(ValueError):

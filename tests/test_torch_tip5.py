@@ -44,7 +44,7 @@ def test_copied_constants_equal_jax():
 
 
 def test_tables_hold_the_constants():
-    rc, lut = tperm.tip5_tables()
+    rc, lut = tperm.tip5_tables("cpu")
     assert rc.dtype == torch.int64 and lut.dtype == torch.uint8
     np.testing.assert_array_equal(gf.to_u64(rc), jconst.ROUND_CONSTANTS)
     np.testing.assert_array_equal(lut.numpy(), jconst.LOOKUP_TABLE)
@@ -119,6 +119,8 @@ def test_varlen_hash_matches_jax(length):
     padded = tperm.pad_for_varlen(_to_port(x))
     jpadded = jperm.pad_for_varlen(jgf.to_limbs(x))
     np.testing.assert_array_equal(gf.to_u64(padded), jgf.from_limbs(jpadded))
+    np.testing.assert_array_equal(tperm.pad_for_varlen(x),
+                                  jgf.from_limbs(jpadded))
     got = tperm.hash_varlen_padded(padded)
     np.testing.assert_array_equal(gf.to_u64(got), jperm.hash_varlen(x))
     assert Digest.from_array(gf.to_u64(got)[0]) == Tip5.hash_varlen(
@@ -127,7 +129,7 @@ def test_varlen_hash_matches_jax(length):
 
 def test_tip5_permute_wrapper_on_cpu_is_the_plain_twin():
     states = _to_port(_states(16))
-    rc, lut = tperm.tip5_tables()
+    rc, lut = tperm.tip5_tables("cpu")
     launches = tip5_cuda.tip5_permute.launches
     got = tip5_cuda.tip5_permute(states, rc, lut)
     assert tip5_cuda.tip5_permute.launches == launches  # no kernel on a CPU
@@ -137,7 +139,7 @@ def test_tip5_permute_wrapper_on_cpu_is_the_plain_twin():
 @pytest.mark.parametrize("bad", ["shape", "dtype", "contiguous", "rc", "lut"])
 def test_tip5_permute_rejects_bad_input(bad):
     states = _to_port(_states(4))
-    rc, lut = tperm.tip5_tables()
+    rc, lut = tperm.tip5_tables("cpu")
     if bad == "shape":
         states = states[:, :15].contiguous()
     elif bad == "dtype":

@@ -31,12 +31,19 @@ _VP, _I, _LL, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     # in, out, rows, rc, lut, stream
     "tf_tip5_permute": (_VP, _VP, _LL, _VP, _VP, _VP),
+    # in, out (rows, 6, 16), rows, rc, lut, stream
+    "tf_tip5_trace": (_VP, _VP, _LL, _VP, _VP, _VP),
     # in, out, blocks, threads, leaf, levels, rc, lut, stream
     "tf_merkle_commit": (_VP, _VP, _LL, _I, _I, _I, _VP, _VP, _VP),
     # in, out, log_t, log_tc, ncols, nbatch, in strides (b, e, c),
     # out strides (b, e, c), tw, diag, diag strides (e, c), scale, stream
     "tf_ntt_local_pass": (_VP, _VP, _I, _I, _LL, _I, _LL, _LL, _LL, _LL, _LL,
                           _LL, _VP, _VP, _LL, _LL, _ULL, _VP),
+    # in, out, log_t, stage, ncols, in strides (e, c), out strides (e, c),
+    # tw, bit_reverse, stream
+    "tf_ntt_stage": (_VP, _VP, _I, _I, _LL, _LL, _LL, _LL, _LL, _VP, _I, _VP),
+    # a, b, out, n, k, op, stream
+    "tf_gf_chain": (_VP, _VP, _VP, _LL, _I, _I, _VP),
 }
 
 _lib = None
@@ -89,6 +96,26 @@ def build() -> Path:
 def build_log() -> str:
     path = _library_path().with_suffix(".log")
     return path.read_text() if path.exists() else ""
+
+
+def sass() -> dict[str, list[str]] | None:
+    """The built library's SASS by ``cuobjdump -sass``: each kernel's
+    (mangled) name -> its instruction lines. None where the toolkit has no
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    proc = subprocess.run([tool, "-sass", str(build())], capture_output=True,
+                          text=True, check=True)
+    kernels: dict[str, list[str]] = {}
+    lines = None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            lines = kernels.setdefault(line.split("Function :")[1].strip(), [])
+        elif lines is not None:
+            lines.append(line)
+    return kernels
 
 
 def load():

@@ -50,6 +50,31 @@ __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
   return a < b ? d - EPSILON : d;
 }
 
+// Lazy forms (any u64 residue in, a u64 residue out), bit for bit the
+// representatives of twenty_first_tpu/math/gf.py's reduce128_lazy (:304),
+// mul_lazy (:329) and add_lazy (:337): every fix-up wraps mod 2^64.
+__device__ __forceinline__ uint64_t reduce128_lazy(uint64_t lo, uint64_t hi) {
+  const uint64_t hh = hi >> 32;
+  const uint64_t hl = hi & EPSILON;
+  uint64_t t = lo - hh;
+  if (lo < hh) t -= EPSILON;
+  const uint64_t m = (hl << 32) - hl;
+  uint64_t r = t + m;
+  if (r < m) r += EPSILON;
+  return r;
+}
+
+__device__ __forceinline__ uint64_t mul_lazy(uint64_t a, uint64_t b) {
+  return reduce128_lazy(a * b, __umul64hi(a, b));
+}
+
+// A wrap adds EPSILON, and a second one when the wrapped sum is >= p.
+__device__ __forceinline__ uint64_t add_lazy(uint64_t a, uint64_t b) {
+  const uint64_t s = a + b;
+  const uint64_t k = s < a ? (s >= P ? 2 : 1) : 0;
+  return s + k * EPSILON;
+}
+
 // a^E for a compile-time exponent E > 0, square and multiply; the loops
 // have constant trip counts and unroll (x^7: two squares, two products).
 template <uint64_t E>

@@ -3,7 +3,9 @@
 // Replaces the Pallas kernels of twenty_first_tpu/ops/tip5_pallas.py:
 //   * K1 tip5_permute_kernel <- _dense_kernel (:252), launched by
 //     permute_packed (:421); it also computes the function of the narrow
-//     _permutation_kernel (:102) and of permutation_dense (:383).
+//     _permutation_kernel (:102) and of permutation_dense (:383), which
+//     ops/tip5_batch.py launches through it. A compile-time trace mode
+//     gives tip5/permutation.py::trace (:204).
 //   * K2 merkle_commit_kernel <- _make_dense_multi_kernel (:262), launched
 //     by permute_packed_multi (:302), together with the pairing glue of
 //     ops/tip5_packed.py (pair_packed :99, _packed_chain :132).
@@ -84,8 +86,13 @@ __device__ __forceinline__ void mds(uint64_t s[kState]) {
   }
 }
 
+// kTrace also writes the state after round r to trace[(r + 1) * 16 ..];
+// without it the function is the plain permutation (the flag is resolved
+// at compile time, so K1's and K2's code does not change).
+template <bool kTrace = false>
 __device__ __forceinline__ void permute(uint64_t s[kState], const uint64_t* rc,
-                                        const uint8_t* lut) {
+                                        const uint8_t* lut,
+                                        uint64_t* trace = nullptr) {
 #pragma unroll 1
   for (int r = 0; r < kRounds; ++r) {
 #pragma unroll
@@ -95,6 +102,10 @@ __device__ __forceinline__ void permute(uint64_t s[kState], const uint64_t* rc,
     mds(s);
 #pragma unroll
     for (int i = 0; i < kState; ++i) s[i] = gl::add(s[i], rc[r * kState + i]);
+    if constexpr (kTrace) {
+#pragma unroll
+      for (int i = 0; i < kState; ++i) trace[(r + 1) * kState + i] = s[i];
+    }
   }
 }
 
@@ -108,6 +119,10 @@ __device__ __forceinline__ void load_tables(uint64_t* rc, uint8_t* lut,
 }
 
 // K1: (rows, 16) states -> (rows, 16) permuted states, one thread per state.
+// Trace mode (kTrace, the counterpart of tip5/permutation.py::trace :204)
+// writes (rows, 6, 16) instead: the input state, then the canonical state
+// after each of the five rounds.
+template <bool kTrace>
 __global__ void __launch_bounds__(kMaxThreads)
     tip5_permute_kernel(const uint64_t* in, uint64_t* out, int64_t rows,
                         const uint64_t* rc_g, const uint8_t* lut_g) {
@@ -121,9 +136,16 @@ __global__ void __launch_bounds__(kMaxThreads)
   uint64_t s[kState];
 #pragma unroll
   for (int i = 0; i < kState; ++i) s[i] = in[row * kState + i];
-  permute(s, rc, lut);
+  if constexpr (kTrace) {
+    uint64_t* trace = out + row * (kRounds + 1) * kState;
 #pragma unroll
-  for (int i = 0; i < kState; ++i) out[row * kState + i] = s[i];
+    for (int i = 0; i < kState; ++i) trace[i] = s[i];
+    permute<true>(s, rc, lut, trace);
+  } else {
+    permute(s, rc, lut);
+#pragma unroll
+    for (int i = 0; i < kState; ++i) out[row * kState + i] = s[i];
+  }
 }
 
 // K2: a block of T threads reduces `levels` Merkle levels.
@@ -188,18 +210,34 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 }  // namespace
 
-extern "C" int tf_tip5_permute(const void* in, void* out, long long rows,
-                               const void* rc, const void* lut,
-                               void* stream) {
+namespace {
+
+template <bool kTrace>
+int launch_permute(const void* in, void* out, long long rows, const void* rc,
+                   const void* lut, void* stream) {
   constexpr int threads = 128;
   if (rows > 0) {
     const long long blocks = (rows + threads - 1) / threads;
-    tip5_permute_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+    tip5_permute_kernel<kTrace><<<static_cast<unsigned>(blocks), threads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out), rows,
         static_cast<const uint64_t*>(rc), static_cast<const uint8_t*>(lut));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int tf_tip5_permute(const void* in, void* out, long long rows,
+                               const void* rc, const void* lut,
+                               void* stream) {
+  return launch_permute<false>(in, out, rows, rc, lut, stream);
+}
+
+// out: (rows, 6, 16), see tip5_permute_kernel's trace mode
+extern "C" int tf_tip5_trace(const void* in, void* out, long long rows,
+                             const void* rc, const void* lut, void* stream) {
+  return launch_permute<true>(in, out, rows, rc, lut, stream);
 }
 
 extern "C" int tf_merkle_commit(const void* in, void* out, long long blocks,

@@ -12,9 +12,10 @@ from .math import gf
 from .parallel.pipeline import lde_commit
 
 
-def entry(device=None):
+def entry(device="cuda"):
     """(step, args): ``step(*args)`` is the (1, 5) root of a (16, 64) trace
-    drawn from ``np.random.default_rng(0)``, on ``device``."""
+    drawn from ``np.random.default_rng(0)``, on ``device`` (the card unless
+    the caller asks for another; a machine without one raises)."""
     rows, n = 16, 64
     rng = np.random.default_rng(0)
     data = rng.integers(0, (1 << 64) - (1 << 32) + 1, size=(rows, n),

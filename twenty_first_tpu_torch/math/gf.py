@@ -153,6 +153,77 @@ def square(a):
     return mul(a, a)
 
 
+# ---------------------------------------------------------------------------
+# Lazy (non-canonical) forms: any u64 residue in, a u64 residue out. Each
+# reproduces the JAX package's representative bit for bit (its limb-plane
+# steps, read as u64 arithmetic mod 2^64), so a chain of them returns the
+# same raw words as ``twenty_first_tpu.math.gf`` does.
+# ---------------------------------------------------------------------------
+
+
+def reduce128_lazy(lo, hi):
+    """``reduce128`` without the final canonicalisation: a u64 residue of
+    lo + hi * 2^64. Both EPSILON fix-ups wrap mod 2^64 as in JAX."""
+    hh, hl = _shr(hi, 32), hi & _M32
+    t = lo - hh
+    t = torch.where(_ult(lo, hh), t - EPSILON, t)
+    m = (hl << 32) - hl
+    r = t + m
+    return torch.where(_ult(r, m), r + EPSILON, r)
+
+
+def mul_lazy(a, b):
+    """Modular product of any u64 residues, u64 residue out."""
+    return reduce128_lazy(*mul_wide(a, b))
+
+
+def add_lazy(a, b):
+    """Modular sum of any u64 residues: a 64-bit wrap adds EPSILON, and a
+    second EPSILON when the wrapped sum is >= p (k wraps in one pass)."""
+    s = a + b
+    wrap = _ult(s, a)
+    k = wrap.to(s.dtype) + (wrap & ~_ult(s, _P_I64)).to(s.dtype)
+    return s + k * EPSILON
+
+
+def sub_lazy(a, b):
+    """Modular difference of any u64 residues: a borrow subtracts EPSILON,
+    and a second EPSILON when the difference is below EPSILON."""
+    d = a - b
+    borrow = _ult(a, b)
+    k = borrow.to(d.dtype) + (borrow & _ult(d, EPSILON)).to(d.dtype)
+    return d - k * EPSILON
+
+
+def mul_by_pow2_lazy(a, e: int, negate: bool = False):
+    """a * (+-2^e) for 0 < e < 96, a lazy residue out, from the shifted
+    32-bit words of a folded as the JAX package folds them (the 2^128 word
+    by 2^128 == -2^32)."""
+    if not 0 < e < 96:
+        raise ValueError(f"shift must be 1..95, got {e}")
+    lo, hi = a & _M32, _shr(a, 32)
+    zero = torch.zeros_like(a)
+    q, r = divmod(e, 32)
+    if r == 0:
+        shifted = [lo, hi]
+    else:
+        shifted = [(lo << r) & _M32, ((hi << r) | (lo >> (32 - r))) & _M32,
+                   hi >> (32 - r)]
+    words = ([zero] * q + shifted + [zero] * 3)[:4]
+    out = reduce128_lazy(words[0] | (words[1] << 32),
+                         words[2] | (words[3] << 32))
+    if q == 2 and r != 0:
+        out = sub_lazy(out, shifted[2] << 32)
+    if negate:
+        out = sub_lazy(zero, out)
+    return out
+
+
+def mul_by_i_lazy(a, inverse: bool = False):
+    """a * i with i = omega_4 = 2^48; i^-1 = -2^48 (2^96 == -1 mod p)."""
+    return mul_by_pow2_lazy(a, 48, negate=inverse)
+
+
 def mul_const(a, k: int):
     """Multiply by a python-int constant (canonical output)."""
     return mul(a, full_like(a, k))

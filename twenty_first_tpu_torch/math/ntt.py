@@ -87,7 +87,7 @@ class NttTables:
     diag: torch.Tensor | None = None
 
 
-def ntt_tables(n: int, inverse: bool = False, device=None) -> NttTables:
+def ntt_tables(n: int, inverse: bool = False, device="cuda") -> NttTables:
     log_n = _log2(n)
     if log_n <= MAX_LOG_T:
         return NttTables(n, inverse,
@@ -136,11 +136,12 @@ def intt(x, *, tables: NttTables | None = None, plain: bool = False):
     return ntt(x, inverse=True, tables=tables, plain=plain)
 
 
-def ntt_values(values, inverse: bool = False, device=None) -> np.ndarray:
-    """NTT of a host uint64 array over its last axis, on ``device``."""
+def ntt_values(values, inverse: bool = False, device="cuda") -> np.ndarray:
+    """NTT of a host uint64 array over its last axis, on ``device`` (the
+    card unless the caller asks for another)."""
     x = gf.from_u64(values).to(device)
     return gf.to_u64(ntt(x, inverse=inverse))
 
 
-def intt_values(values, device=None) -> np.ndarray:
+def intt_values(values, device="cuda") -> np.ndarray:
     return ntt_values(values, inverse=True, device=device)

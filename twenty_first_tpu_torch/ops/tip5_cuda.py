@@ -3,7 +3,9 @@
 The counterpart of ``twenty_first_tpu/ops/tip5_pallas.py``:
 
 * K1 ``tip5_permute`` (replaces ``permute_packed`` / ``_dense_kernel``):
-  (rows, 16) states -> permuted states, one thread per state;
+  (rows, 16) states -> permuted states, one thread per state; its trace
+  mode ``tip5_trace`` (a compile-time variant of the same kernel) writes
+  the (rows, 6, 16) round states of ``tip5/permutation.py::trace``;
 * K2 ``merkle_commit`` (replaces ``permute_packed_multi`` /
   ``_make_dense_multi_kernel`` and the ``tip5_packed`` pairing glue): one
   launch reduces several Merkle levels, a block at a time.
@@ -17,8 +19,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..tip5.constants import DIGEST_LENGTH, STATE_SIZE
-from ..tip5.permutation import fixed_length_state, permutation_plain
+from ..tip5.constants import DIGEST_LENGTH, NUM_ROUNDS, STATE_SIZE
+from ..tip5.permutation import (fixed_length_state, permutation_plain,
+                                trace_plain)
 
 #: Largest K2 block (threads); it bounds the levels one launch can fuse.
 MAX_THREADS = 256
@@ -76,6 +79,33 @@ def tip5_permute(states, rc, lut):
 
 
 tip5_permute.launches = 0
+
+tip5_trace_plain = trace_plain
+
+
+def tip5_trace(states, rc, lut):
+    """(rows, 16) int64 states -> (rows, 6, 16): the input and the canonical
+    state after each round (K1's trace mode)."""
+    _check_rows(states, STATE_SIZE, "states")
+    _check_tables(rc, lut, states.device)
+    if states.device.type == "cpu":
+        return tip5_trace_plain(states, rc, lut)
+    _require_cuda(states)
+    out = torch.empty((states.shape[0], NUM_ROUNDS + 1, STATE_SIZE),
+                      dtype=states.dtype, device=states.device)
+    if states.shape[0] == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(states.device):
+        err = lib.tf_tip5_trace(
+            states.data_ptr(), out.data_ptr(), states.shape[0],
+            rc.data_ptr(), lut.data_ptr(), _build.stream_of(states))
+        _build.check(err, "tip5_trace")
+    tip5_trace.launches += 1
+    return out
+
+
+tip5_trace.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -40,12 +40,13 @@ def _log2_exact(n: int, what: str) -> int:
 class TraceLdeCommit(nn.Module):
     """LDE + commit of (w, n) traces: ``forward(trace) -> (1, 5)`` root.
 
-    Holds every table of the step as a buffer: the twiddles and four-step
+    Holds every table of the step as a buffer, on ``device`` (the card
+    unless the caller asks for another): the twiddles and four-step
     diagonals of the n-point iNTT and the (expansion * n)-point NTT, the
     coset offset's powers, and Tip5's round constants and lookup table."""
 
     def __init__(self, w: int, n: int, expansion: int = 4,
-                 offset: int | None = None, device=None):
+                 offset: int | None = None, device="cuda"):
         super().__init__()
         if not 1 <= w <= RATE:
             raise ValueError(f"trace width must be 1..{RATE}, got {w}")

@@ -14,10 +14,16 @@ The counterpart of ``twenty_first_tpu/tip5/permutation.py``. States are
 
 ``permutation_plain`` is that arithmetic in plain torch, on any device: the
 plain twin of the CUDA kernel (``ops/tip5_cuda.py``). ``permutation`` sends
-a CUDA tensor to the kernel and a CPU tensor to the twin.
+a CUDA tensor to the kernel and a CPU tensor to the twin; so do
+``permutation_batch``, ``trace`` (the kernel's trace mode) and the sponge
+entry points, which launch the kernel once per absorbed chunk. The
+``*_values``, ``hash_varlen`` and ``hash_varlen_ragged`` entry points take
+and return host uint64 arrays and run on ``device``, the card by default.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -39,9 +45,17 @@ _M32 = 0xFFFF_FFFF
 _MDS_COL = [int(c) for c in MDS_MATRIX_FIRST_COLUMN]
 
 
-def tip5_tables(device=None) -> tuple[torch.Tensor, torch.Tensor]:
+def tip5_tables(device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """The permutation's tables on ``device``: round constants (80,) int64
-    carrier and the byte lookup table (256,) uint8."""
+    carrier and the byte lookup table (256,) uint8. Made once per device
+    and shared (callers must not write to them), so an entry point called
+    without tables does not copy them to the card, which would block the
+    host, on every call."""
+    return _tables_on(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     rc = torch.from_numpy(ROUND_CONSTANTS.view(np.int64).copy())
     lut = torch.from_numpy(LOOKUP_TABLE.astype(np.uint8))
     return rc.to(device), lut.to(device)
@@ -103,6 +117,16 @@ def permutation_plain(state, rc, lut):
     return state
 
 
+def trace_plain(state, rc, lut):
+    """(..., 16) states -> (..., 6, 16): the input, then the canonical state
+    after each round, in plain torch (the twin of K1's trace mode)."""
+    rc = rc.reshape(NUM_ROUNDS, STATE_SIZE)
+    states = [state]
+    for r in range(NUM_ROUNDS):
+        states.append(_round(states[-1], rc[r], lut))
+    return torch.stack(states, dim=-2)
+
+
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
@@ -118,6 +142,27 @@ def permutation(state, *, tables=None, plain: bool = False):
 
     flat = state.reshape(-1, STATE_SIZE).contiguous()
     return tip5_cuda.tip5_permute(flat, rc, lut).reshape(state.shape)
+
+
+# The standalone batch permutation of (B, 16) states. The JAX package sends
+# aligned batches (B a multiple of 2^12) to its lane-dense Pallas kernel on
+# a TPU (``TWENTY_FIRST_TPU_DENSE_PERM``); that dispatch answers TPU lanes
+# only. Here every B goes to K1 on a CUDA tensor, to the twin on a CPU one.
+permutation_batch = permutation
+
+
+def trace(state, *, tables=None, plain: bool = False):
+    """Permutation trace: (..., 16) -> (..., 6, 16), trace[0] the input and
+    trace[1 + i] the canonical state after round i (Tip5::trace). K1's trace
+    mode for a CUDA tensor, the plain twin for a CPU tensor or on request."""
+    rc, lut = tables if tables is not None else tip5_tables(state.device)
+    if plain:
+        return trace_plain(state, rc, lut)
+    from ..ops import tip5_cuda
+
+    flat = state.reshape(-1, STATE_SIZE).contiguous()
+    out = tip5_cuda.tip5_trace(flat, rc, lut)
+    return out.reshape(state.shape[:-1] + (NUM_ROUNDS + 1, STATE_SIZE))
 
 
 def fixed_length_state(rate_input):
@@ -140,13 +185,22 @@ def hash_pair(left, right, *, tables=None, plain: bool = False):
                    plain=plain)
 
 
+def padded_length(length: int) -> int:
+    """The length of an L-word input after the sponge padding."""
+    return (length + 1 + RATE - 1) // RATE * RATE
+
+
 def pad_for_varlen(x):
     """Append the 1, 0, ..., 0 sponge padding to (..., L) up to a multiple
-    of RATE."""
+    of RATE: a carrier tensor on its device, or a host uint64 array on the
+    host."""
     length = x.shape[-1]
-    pad_to = (length + 1 + RATE - 1) // RATE * RATE
-    pad = torch.zeros(x.shape[:-1] + (pad_to - length,), dtype=x.dtype,
-                      device=x.device)
+    shape = tuple(x.shape[:-1]) + (padded_length(length) - length,)
+    if isinstance(x, np.ndarray):
+        pad = np.zeros(shape, dtype=x.dtype)
+        pad[..., 0] = 1
+        return np.concatenate([x, pad], axis=-1)
+    pad = torch.zeros(shape, dtype=x.dtype, device=x.device)
     pad[..., 0] = 1
     return torch.cat([x, pad], dim=-1)
 
@@ -163,3 +217,75 @@ def hash_varlen_padded(padded, *, tables=None, plain: bool = False):
                            state[..., RATE:]], dim=-1)
         state = permutation(state, tables=tables, plain=plain)
     return state[..., :DIGEST_LENGTH]
+
+
+# ---------------------------------------------------------------------------
+# Host-array entry points (uint64 numpy in and out), on ``device``
+# ---------------------------------------------------------------------------
+
+
+def _to_device(values, device):
+    return gf.from_u64(np.asarray(values, dtype=np.uint64)).to(device)
+
+
+def permutation_values(states, device="cuda", plain: bool = False):
+    """uint64 (..., 16) -> permuted uint64 (..., 16)."""
+    return gf.to_u64(permutation(_to_device(states, device), plain=plain))
+
+
+def permutation_batch_values(states, device="cuda", plain: bool = False):
+    """uint64 (B, 16) -> permuted, through ``permutation_batch``."""
+    return gf.to_u64(permutation_batch(_to_device(states, device),
+                                       plain=plain))
+
+
+def trace_values(states, device="cuda", plain: bool = False):
+    """uint64 (..., 16) -> uint64 (..., 6, 16) permutation traces."""
+    return gf.to_u64(trace(_to_device(states, device), plain=plain))
+
+
+def hash_varlen(values, device="cuda", plain: bool = False) -> np.ndarray:
+    """Hash a batch of equal-length inputs: uint64 (..., L) -> (..., 5).
+
+    One K1 launch per absorbed chunk of RATE words (L = 16384 is 1639
+    launches of one state each)."""
+    padded = pad_for_varlen(_to_device(values, device))
+    return gf.to_u64(hash_varlen_padded(padded, plain=plain))
+
+
+def hash_varlen_ragged(inputs, device="cuda", plain: bool = False):
+    """Hash inputs of any lengths (0 included) in one call: a sequence of
+    uint64 arrays -> (N, 5) uint64 digests, equal to ``hash_varlen`` of each.
+
+    The inputs are sorted by chunk count, longest first, so the inputs
+    still absorbing at step i are a prefix of the batch: step i permutes
+    that prefix only (one K1 launch) and updates the state in place. Their
+    padded chunks go to the device once, step-major, so no input is padded
+    beyond its own length. (The JAX package buckets by powers of two only
+    to bound its XLA compiles.)"""
+    arrs = [np.asarray(v, dtype=np.uint64).ravel() for v in inputs]
+    out = np.empty((len(arrs), DIGEST_LENGTH), dtype=np.uint64)
+    if not arrs:
+        return out
+    counts = np.array([padded_length(a.size) // RATE for a in arrs])
+    order = np.argsort(-counts, kind="stable")
+    # active[i]: inputs with more than i chunks, a prefix of `order`
+    active = np.array([int((counts > i).sum())
+                       for i in range(int(counts.max()))])
+    offsets = np.concatenate([[0], np.cumsum(active)])
+    chunks = np.zeros((int(offsets[-1]), RATE), dtype=np.uint64)
+    for row, idx in enumerate(order):
+        # on the host: torch calls per input tripled the host time of a
+        # 256-input batch
+        chunks[offsets[:int(counts[idx])] + row] = pad_for_varlen(
+            arrs[idx]).reshape(-1, RATE)
+    x = _to_device(chunks, device)
+    tables = tip5_tables(x.device)
+    state = torch.zeros((len(arrs), STATE_SIZE), dtype=x.dtype,
+                        device=x.device)
+    for i, rows in enumerate(active.tolist()):
+        absorbed = torch.cat([x[offsets[i]:offsets[i] + rows],
+                              state[:rows, RATE:]], dim=-1)
+        state[:rows] = permutation(absorbed, tables=tables, plain=plain)
+    out[order] = gf.to_u64(state[:, :DIGEST_LENGTH])
+    return out
