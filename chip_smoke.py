@@ -12,7 +12,8 @@ the JAX reference, and drives four paths, each with every launch counter
 set to 0 just before it and read just after:
 
 * the flagship step (W = 8 trace columns, n = 2^20, expansion 4: a
-  2^22-row LDE + Tip5 Merkle commit) and the entry point (K1, K2, K3);
+  2^22-row LDE + Tip5 Merkle commit) and the entry point (K1, K3 and K2's
+  two launches: the full-width level and the fused tail);
 * the standalone Tip5 batch path: permutation_batch at 2^16 and 2^22
   states, the T4/T5 entry points, trace, hash_varlen and
   hash_varlen_ragged (K1 and its trace mode);
@@ -20,8 +21,10 @@ set to 0 just before it and read just after:
 * the ALU probe, chains of lazy field ops (K5).
 
 It prints one JSON line per phase. The last lines are the card's name and
-power limit (as nvidia-smi reports them), the per-kernel JSON line, and
-the device line. Any failure raises: a non-zero exit and no device line.
+power limit (as nvidia-smi reports them), the per-kernel JSON line (for
+the Tip5 kernels with their SASS instructions per permutation, registers,
+resident warps and issue-bound time; K2's row is the whole 2^22-leaf
+tree, launch by launch), and the device line. Any failure raises: a non-zero exit and no device line.
 It needs a CUDA device and refuses to run without one.
 """
 
@@ -110,12 +113,12 @@ TRACE_STATES = 1 << 16
 MIXED_INPUTS, MIXED_MAX_LENGTH = 256, 120
 
 # The bound of a kernel's work: the larger of its bytes (each input read
-# once, each output written once) over the memory rate and its integer
-# multiplies over the IMAD rate (SMs x 64 lanes x the maximum SM clock;
-# both rates in probes/timing.py). Multiplies are counted as the fewest
-# 32x32 -> 64-bit products a known algorithm needs, whatever the kernel
-# does: four for a product of two 64-bit words, three for a square; none
-# for a reduction or a product by 2^32 - 1 or 2^-64 mod p (the S-box's
+# once, each output written once) over the memory rate and its multiplies
+# over the rates of the pipes that can do them (SMs x lanes x the maximum
+# SM clock; the rates in probes/timing.py). Multiplies are counted as the
+# fewest 32x32 -> 64-bit products a known algorithm needs, whatever the
+# kernel does: four for a product of two 64-bit words, three for a square;
+# none for a reduction or a product by 2^32 - 1 or 2^-64 mod p (the S-box's
 # Montgomery conversions), which shifts and adds do. A Tip5 round then
 # costs 14 per word for x^7 on 12 words (x^2, x^3, x^6, x^7: two squares,
 # two products) and, for the MDS, two 16-point cyclic convolutions with
@@ -123,10 +126,16 @@ MIXED_INPUTS, MIXED_MAX_LENGTH = 256, 120
 # the CRT tower of the Tip5 reference's mds_cyclomul, with Karatsuba and
 # three-product complex multiplies at its base
 # (tests/test_torch_bounds.py counts them). K1 does 512 for the MDS.
+# The x^7 products are of full 64-bit words and take the integer-multiply
+# (IMAD) pipe. The MDS's are of 32-bit halves by constants, which the FP64
+# pipe beside it does exactly (K1 runs its MDS there as double FMAs), so
+# they may go to either: the floor of the products is the larger of the
+# IMAD-only ones over the IMAD rate and all of them over both rates.
 IMAD_PER_MUL, IMAD_PER_SQUARE = 4, 3
 MDS_PRODUCTS = 41
-IMAD_PER_ROUND = 12 * 2 * (IMAD_PER_SQUARE + IMAD_PER_MUL) + 2 * MDS_PRODUCTS
-IMAD_PER_PERM = 5 * IMAD_PER_ROUND
+POW7_PRODUCTS_PER_PERM = 5 * 12 * 2 * (IMAD_PER_SQUARE + IMAD_PER_MUL)
+MDS_PRODUCTS_PER_PERM = 5 * 2 * MDS_PRODUCTS
+PRODUCTS_PER_PERM = POW7_PRODUCTS_PER_PERM + MDS_PRODUCTS_PER_PERM
 NO_LIBRARY = {"library_ms": None,
               "library": "no PyTorch call computes Goldilocks field "
                          "arithmetic, a Goldilocks NTT or Tip5"}
@@ -142,17 +151,28 @@ def ragged_inputs() -> list:
     return [rng.integers(0, P, size=n, dtype=np.uint64) for n in RAGGED_LENGTHS]
 
 
-def bound(nbytes: int, imads: int) -> dict:
-    """bound_ms and what sets it, for ``nbytes`` moved and ``imads`` IMADs."""
+def bound(nbytes: int, imads: int, either: int = 0) -> dict:
+    """bound_ms and what sets it, for ``nbytes`` moved, ``imads`` products
+    that only the IMAD pipe does and ``either`` that the IMAD or the FP64
+    pipe may do."""
     from twenty_first_tpu_torch.probes import timing
 
-    imad_per_s = timing.lane_rate(timing.IMAD_LANES_PER_SM,
-                                  timing.sm_clock_mhz()[1])
+    clock = timing.sm_clock_mhz()[1]
+    imad_per_s = timing.lane_rate(timing.IMAD_LANES_PER_SM, clock)
+    fp64_per_s = timing.lane_rate(timing.FP64_LANES_PER_SM, clock)
     mem_ms = nbytes / timing.MEMORY_BYTES_PER_S * 1e3
-    ops_ms = imads / imad_per_s * 1e3
+    ops_ms = max(imads / imad_per_s,
+                 (imads + either) / (imad_per_s + fp64_per_s)) * 1e3
     return {"bound_ms": max(mem_ms, ops_ms),
             "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
-            "bound_bytes": nbytes, "bound_imads": imads}
+            "bound_bytes": nbytes, "bound_imads": imads,
+            "bound_imad_or_fp64_products": either}
+
+
+def tip5_bound(nbytes: int, perms: int) -> dict:
+    """``bound`` of ``perms`` Tip5 permutations moving ``nbytes``."""
+    return bound(nbytes, POW7_PRODUCTS_PER_PERM * perms,
+                 MDS_PRODUCTS_PER_PERM * perms)
 
 
 def run_path(counters, fn):
@@ -281,11 +301,15 @@ def phase_k1(rng, tables) -> dict:
          perms_per_s=N * E / (ms * 1e-3))
     return {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
             "plain_ms": plain_ms,
-            **bound(2 * 128 * N * E, IMAD_PER_PERM * N * E)}
+            **tip5_bound(2 * 128 * N * E, N * E)}
 
 
 def phase_k2(rng, tables) -> dict:
+    """K2, the tree: uneven and forced-branch cases against the plain twins,
+    then the tree over the main path's 2^22 leaf digests, timed whole and
+    launch by launch."""
     from twenty_first_tpu_torch.ops import tip5_commit, tip5_cuda
+    from twenty_first_tpu_torch.probes import tip5_probe
 
     states = random_field(rng, (1 << 16, 16))
     require_equal("K2 commit of 2^16 leaf states",
@@ -294,41 +318,66 @@ def phase_k2(rng, tables) -> dict:
                                             plain=True))
     cases = [(2, 1), (4, 2), (8, 3), (6, 1), (96, 5), (384, 7), (512, 9),
              (1024, 10), (1536, 9), (3 << 11, 11), (1 << 13, 13)]
+    # resident thread counts that put the switch from full-width levels to
+    # the fused tail at every level of these small trees (0: all full width)
+    forced = (0, 1, 7, 48, 200, 1 << 30)
+    checked = 0
     for rows, layers in cases:
         dig = random_field(rng, (rows, 5))
-        require_equal(f"K2 reduce ({rows}, {layers})",
-                      tip5_commit.reduce_layers(dig, layers, tables=tables),
-                      tip5_commit.reduce_layers(dig, layers, tables=tables,
-                                                plain=True))
-    for rows, layers in [(48, 4), (1024, 0), (40, 3), (256, 8)]:
+        want = tip5_commit.reduce_layers(dig, layers, tables=tables,
+                                         plain=True)
+        for resident in (None, *forced):
+            require_equal(f"K2 reduce ({rows}, {layers}) resident={resident}",
+                          tip5_commit.reduce_layers(
+                              dig, layers, tables=tables,
+                              resident_threads=resident), want)
+            checked += 1
+    for rows, layers in [(48, 4), (1024, 0), (40, 3), (256, 8), (1536, 9)]:
         st = random_field(rng, (rows, 16))
-        require_equal(f"K2 commit ({rows}, {layers})",
-                      tip5_commit.commit_states(st, layers, tables=tables),
-                      tip5_commit.commit_states(st, layers, tables=tables,
-                                                plain=True))
+        want = tip5_commit.commit_states(st, layers, tables=tables,
+                                         plain=True)
+        for resident in (None, *forced):
+            require_equal(f"K2 commit ({rows}, {layers}) resident={resident}",
+                          tip5_commit.commit_states(
+                              st, layers, tables=tables,
+                              resident_threads=resident), want)
+            checked += 1
     # at the main path's shape: the tree over 2^22 leaf digests
     leafs = random_field(rng, (N * E, 5))
     log_rows = (N * E).bit_length() - 1
-    root = tip5_commit.reduce_layers(leafs, log_rows, tables=tables)
-    err = require_equal("K2 tree over the path's leafs", root,
-                        tip5_commit.reduce_layers(leafs, log_rows,
-                                                  tables=tables, plain=True))
-    first = lambda: tip5_cuda.merkle_commit(leafs, False, 9, 256, *tables)  # noqa: E731
-    first_plain = lambda: tip5_cuda.merkle_commit_plain(  # noqa: E731
-        leafs, False, 9, 256, *tables)
-    require_equal("K2 first launch at the path's shape", first(),
-                  first_plain())
-    ms = cuda_ms(first, 10)
-    host_ms = wall_ms(first, 10)
-    plain_ms = cuda_ms(first_plain, 3)
-    tree_ms = cuda_ms(lambda: tip5_commit.reduce_layers(
-        leafs, log_rows, tables=tables), 5)
-    emit("k2_merkle_commit", cases=len(cases) + 5, launch_shape=[N * E, 5],
-         launch_levels=9, ms=ms, plain_ms=plain_ms, tree_ms=tree_ms)
-    perms = N * E - (N * E >> 9)  # 2^21 + 2^20 + ... over 9 levels
+    tree = lambda: tip5_commit.reduce_layers(leafs, log_rows, tables=tables)  # noqa: E731
+    tree_plain = lambda: tip5_commit.reduce_layers(  # noqa: E731
+        leafs, log_rows, tables=tables, plain=True)
+    err = require_equal("K2 tree over the path's leafs", tree(), tree_plain())
+    resident = tip5_cuda.resident_threads(leafs.device)
+    plan = tip5_commit.plan(N * E, log_rows, resident)
+    ms = cuda_ms(tree, 10)
+    host_ms = wall_ms(tree, 10)
+    plain_ms = cuda_ms(tree_plain, 3)
+    launches = tip5_probe.tree_launch_ms(leafs, tables)
+    summary = tip5_probe.tree_summary(launches)
+    # the level kernel alone: the first level, 2^22 -> 2^21 digests
+    level = lambda: tip5_cuda.merkle_level(leafs, False, *tables)  # noqa: E731
+    level_plain = lambda: tip5_cuda.merkle_level_plain(  # noqa: E731
+        leafs, False, *tables)
+    level_err = require_equal("K2 level at the path's shape", level(),
+                              level_plain())
+    level_row = {"max_abs_err": level_err, "ms": cuda_ms(level, 10),
+                 "wall_ms": wall_ms(level, 10),
+                 "plain_ms": cuda_ms(level_plain, 3),
+                 **tip5_bound(40 * (N * E + N * E // 2), N * E // 2)}
+    emit("k2_merkle_tree", cases=checked + 2, resident_threads=resident,
+         plan=plan, ms=ms, wall_ms=host_ms, plain_ms=plain_ms,
+         launch_ms=launches, **summary, level_ms=level_row["ms"])
+    fused_perms = sum(t["rows_in"] - (t["rows_in"] >> t["levels"])
+                      for t in launches if t["launch"] == "fused")
     return {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
-            "plain_ms": plain_ms,
-            **bound(40 * (N * E + (N * E >> 9)), IMAD_PER_PERM * perms)}
+            "plain_ms": plain_ms, "tree_leafs": N * E,
+            "perms": {"merkle_level": N * E - 1 - fused_perms,
+                      "merkle_commit": fused_perms},
+            **summary, "plan": plan, "resident_threads": resident,
+            "level_kernel": level_row,
+            **tip5_bound(40 * (N * E + 1), N * E - 1)}
 
 
 def phase_k3(rng) -> dict:
@@ -599,8 +648,8 @@ def phase_tip5_batch(rng, tables) -> dict:
             "trace": {"launches": launches["tip5_trace"],
                       "ms": ms["trace"], "wall_ms": trace_wall_ms,
                       "plain_ms": trace_plain_ms,
-                      **bound(8 * (16 + 96) * TRACE_STATES,
-                              IMAD_PER_PERM * TRACE_STATES)}}
+                      **tip5_bound(8 * (16 + 96) * TRACE_STATES,
+                                   TRACE_STATES)}}
 
 
 def phase_probe_pass(rng) -> dict:
@@ -699,16 +748,34 @@ def phase_probe_alu(rng) -> dict:
                  "plain_over_kernel")}
              for r in results})
     n = fa.numel()
+    rates = [r.get("g_instructions_per_s") for r in results
+             if r["op"] == "mul_lazy"
+             and r["shape"] == list(alu_probe.FULL_SHAPE)]
     return {"launches": launches,
+            "instructions_per_s": rates[0] * 1e9 if rates and isinstance(
+                rates[0], float) else None,
             "k5": {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
                    "plain_ms": plain_ms,
                    **bound(24 * n, IMAD_PER_MUL * k * n)}}
+
+
+def phase_tip5_counts(instructions_per_s) -> dict:
+    """Registers, spills, resident warps and SASS per permutation of the
+    Tip5 kernels (probes/tip5_probe.py), by kernel."""
+    from twenty_first_tpu_torch.probes import tip5_probe
+
+    stats = tip5_probe.kernel_stats()
+    emit("tip5_sass", instructions_per_s=instructions_per_s, **{
+        name: {k: v for k, v in st.items() if k != "round_opcodes"}
+        for name, st in stats.items()})
+    return stats
 
 
 def main() -> None:
     smi = check_device()
     phase_build()
     from twenty_first_tpu_torch.ops import ntt_cuda, tip5_cuda
+    from twenty_first_tpu_torch.probes import tip5_probe
     from twenty_first_tpu_torch.tip5.permutation import tip5_tables
 
     rng = np.random.default_rng(0)
@@ -717,13 +784,27 @@ def main() -> None:
     k2 = phase_k2(rng, tables)
     k3 = phase_k3(rng)
     phase_pinned_roots()
-    counters = (tip5_cuda.tip5_permute, tip5_cuda.merkle_commit,
-                ntt_cuda.ntt_local_pass)
+    counters = (tip5_cuda.tip5_permute, tip5_cuda.merkle_level,
+                tip5_cuda.merkle_commit, ntt_cuda.ntt_local_pass)
     launches = phase_slice(counters)
     phase_entry()
     batch = phase_tip5_batch(rng, tables)
     probe_pass = phase_probe_pass(rng)
     probe_alu = phase_probe_alu(rng)
+    rate = probe_alu["instructions_per_s"]
+    stats = phase_tip5_counts(rate)
+    k1.update(tip5_probe.counts(stats, "tip5_permute", N * E, rate))
+    batch["trace"].update(tip5_probe.counts(stats, "tip5_trace", TRACE_STATES,
+                                            rate))
+    # the counts of the full-width level kernel, which does all but the
+    # tail's permutations; the fused tail's beside them
+    perms = k2["perms"]
+    k2.update(tip5_probe.counts(stats, "merkle_level", perms["merkle_level"],
+                                rate),
+              counts_of="merkle_level",
+              fused_kernel=tip5_probe.counts(stats, "merkle_commit",
+                                             perms["merkle_commit"], rate),
+              issue_bound_ms=tip5_probe.issue_bound_ms(stats, perms, rate))
     pallas = "twenty_first_tpu/ops/tip5_pallas.py"
     kernels = [
         {"name": "tip5_permute", "route": "cuda",
@@ -738,7 +819,10 @@ def main() -> None:
         {"name": "merkle_commit", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/tip5.cu",
          "replaces": f"{pallas}:262 (T2)",
-         "launches": launches["merkle_commit"], **k2, **NO_LIBRARY},
+         "launches": launches["merkle_commit"] + launches["merkle_level"],
+         "launches_by_wrapper": {"merkle_level": launches["merkle_level"],
+                                 "merkle_commit": launches["merkle_commit"]},
+         **k2, **NO_LIBRARY},
         {"name": "ntt_local_pass", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/ntt.cu",
          "replaces": "twenty_first_tpu/ops/ntt_pallas.py:47 (T3); "

@@ -118,11 +118,99 @@ def test_tower_is_a_cyclic_convolution(n):
 
 def test_mds_products():
     """The tower gives the MDS layer with MDS_PRODUCTS products; one Tip5
-    permutation then costs IMAD_PER_PERM multiplies in chip_smoke.py."""
+    permutation then costs PRODUCTS_PER_PERM multiplies in chip_smoke.py,
+    the x^7 ones on the IMAD pipe alone."""
     rng = np.random.default_rng(41)
     for _ in range(4):
         state = [int(v) for v in rng.integers(0, P, 16, dtype=np.uint64)]
         mul = Products()
         assert cyclic(mul, state, COL) == matvec(state)
         assert mul.count == chip_smoke.MDS_PRODUCTS
-    assert chip_smoke.IMAD_PER_PERM == 5 * (12 * 14 + 2 * 41)
+    assert chip_smoke.PRODUCTS_PER_PERM == 5 * (12 * 14 + 2 * 41)
+    assert chip_smoke.POW7_PRODUCTS_PER_PERM == 840
+    assert chip_smoke.MDS_PRODUCTS_PER_PERM == 410
+
+
+class Tracked:
+    """A field value that counts the additions and subtractions made on
+    input-dependent values (shared counter ``adds``)."""
+
+    def __init__(self, v, adds):
+        self.v, self.adds = v % P, adds
+
+    def _other(self, o):
+        return o.v if isinstance(o, Tracked) else o
+
+    def __add__(self, o):
+        if not (isinstance(o, int) and o == 0):  # a copy into a zero slot
+            self.adds[0] += 1
+        return Tracked(self.v + self._other(o), self.adds)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        self.adds[0] += 1
+        return Tracked(self.v - self._other(o), self.adds)
+
+    def __rsub__(self, o):
+        self.adds[0] += 1
+        return Tracked(self._other(o) - self.v, self.adds)
+
+    def __neg__(self):
+        return Tracked(-self.v, self.adds)
+
+    def __mul__(self, c):
+        return Tracked(self.v * self._other(c), self.adds)
+
+    def __mod__(self, m):
+        return self
+
+    def __eq__(self, o):
+        return self.v == self._other(o)
+
+
+def _h100_rates(monkeypatch):
+    """chip_smoke.bound's rates for 132 SMs at 1980 MHz, without a card."""
+    from twenty_first_tpu_torch.probes import timing
+
+    monkeypatch.setattr(timing, "sm_clock_mhz", lambda: (1980.0, 1980.0))
+    monkeypatch.setattr(timing, "lane_rate",
+                        lambda lanes, mhz: 132 * lanes * mhz * 1e6)
+    return 132 * 64 * 1980e6  # the IMAD rate; the FP64 rate is the same
+
+
+def test_tip5_bound_counts_the_mds_on_either_pipe(monkeypatch):
+    """The tree's floor is its x^7 products on the IMAD pipe: the MDS's
+    fit beside them on the FP64 pipe. K1's is its bytes."""
+    rate = _h100_rates(monkeypatch)
+    perms = (1 << 22) - 1
+    tree = chip_smoke.tip5_bound(40 * ((1 << 22) + 1), perms)
+    assert tree["bound_by"] == "operations"
+    assert tree["bound_ms"] == pytest.approx(840 * perms / rate * 1e3)
+    assert tree["bound_ms"] == pytest.approx(0.2106, abs=1e-4)
+    k1 = chip_smoke.tip5_bound(2 * 128 << 22, 1 << 22)
+    assert k1["bound_by"] == "bytes"
+    assert k1["bound_ms"] == pytest.approx((256 << 22) / 3.35e12 * 1e3)
+
+
+def test_bound_shares_the_either_products_between_both_pipes(monkeypatch):
+    rate = _h100_rates(monkeypatch)
+    got = chip_smoke.bound(0, 10, 1000)
+    assert got["bound_ms"] == pytest.approx(1010 / (2 * rate) * 1e3)
+    assert chip_smoke.bound(0, 1000)["bound_ms"] == pytest.approx(
+        1000 / rate * 1e3)
+
+
+#: additions and subtractions of input-dependent values in one 16-point
+#: convolution of the tower (PERF.md counts the MDS candidates with it)
+MDS_TOWER_ADDS = 151
+
+
+def test_mds_tower_additions():
+    """The tower's other cost: its additions, each of a value wider than
+    32 bits (two SASS instructions or more as 64-bit integers)."""
+    adds = [0]
+    state = [Tracked(v, adds) for v in range(1, 17)]
+    got = cyclic(Products(), state, COL)
+    assert [g.v for g in got] == matvec(list(range(1, 17)))
+    assert adds[0] == MDS_TOWER_ADDS

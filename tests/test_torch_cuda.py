@@ -58,6 +58,77 @@ def test_k2_reduce_matches_jax(cuda, rows, layers):
     np.testing.assert_array_equal(gf.to_u64(got), want)
 
 
+def test_k2_switch_to_the_tail_matches_jax(cuda):
+    """The first level below the card's resident threads: the smallest tree
+    whose first level runs at full width and whose second goes fused."""
+    resident = tip5_cuda.resident_threads(cuda)
+    log_rows = max(resident - 1, 1).bit_length() + 1
+    assert tip5_commit.plan(1 << log_rows, log_rows, resident)[:2] == [
+        ("level", False), ("fused", False, 9, 256)]
+    dig = _rand((1 << log_rows, 5))
+    got = tip5_commit.reduce_layers(gf.from_u64(dig).to(cuda), log_rows)
+    want = jgf.from_limbs(dist_merkle._reduce_layers(jgf.to_limbs(dig),
+                                                     log_rows))
+    np.testing.assert_array_equal(gf.to_u64(got), want)
+
+
+@pytest.mark.parametrize("rows,layers,resident", [
+    (1024, 10, 300),  # one full-width level, then a one-block fused launch
+    (96, 5, 0),       # every level at full width
+    (1536, 9, 200),   # uneven rows through both kernels
+])
+def test_k2_forced_plan_matches_jax(cuda, rows, layers, resident):
+    dig = _rand((rows, 5))
+    got = tip5_commit.reduce_layers(gf.from_u64(dig).to(cuda), layers,
+                                    resident_threads=resident)
+    want = jgf.from_limbs(dist_merkle._reduce_layers(jgf.to_limbs(dig),
+                                                     layers))
+    np.testing.assert_array_equal(gf.to_u64(got), want)
+
+
+def test_k2_leaf_level_matches_jax(cuda):
+    states = _rand((64, 16))
+    got = tip5_commit.commit_states(gf.from_u64(states).to(cuda), 6,
+                                    resident_threads=16)
+    leafs = jperm.permutation_values(states)[:, :5]
+    want = jgf.from_limbs(dist_merkle._reduce_layers(jgf.to_limbs(leafs), 6))
+    np.testing.assert_array_equal(gf.to_u64(got), want)
+
+
+def _misaligned(values, cuda):
+    """values as a contiguous view that starts 8 bytes off a 16-byte
+    boundary: rows cut from a flat buffer at an odd word offset."""
+    flat = torch.zeros(values.size + 1, dtype=torch.int64, device=cuda)
+    flat[1:] = gf.from_u64(values.ravel()).to(cuda)
+    view = flat[1:].view(values.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    return view
+
+
+def test_misaligned_views_match_jax(cuda):
+    """The kernels read rows with 16-byte loads; each wrapper takes a
+    misaligned view through an aligned copy."""
+    rc, lut = tip5_tables(cuda)
+    states = _rand((300, 16))
+    view = _misaligned(states, cuda)
+    want = jperm.permutation_values(states)
+    np.testing.assert_array_equal(
+        gf.to_u64(tip5_cuda.tip5_permute(view, rc, lut)), want)
+    np.testing.assert_array_equal(gf.to_u64(tperm.permutation(view)), want)
+    assert torch.equal(tip5_cuda.tip5_trace(view, rc, lut),
+                       tip5_cuda.tip5_trace_plain(view, rc, lut))
+    assert torch.equal(tip5_cuda.merkle_level(view, True, rc, lut),
+                       tip5_cuda.merkle_level_plain(view, True, rc, lut))
+    dig = _rand((256, 5))
+    dview = _misaligned(dig, cuda)
+    for launch in (lambda: tip5_cuda.merkle_level(dview, False, rc, lut),
+                   lambda: tip5_cuda.merkle_commit(dview, False, 1, 128, rc,
+                                                   lut)):
+        np.testing.assert_array_equal(
+            gf.to_u64(launch()),
+            jgf.from_limbs(dist_merkle._reduce_layers(jgf.to_limbs(dig), 1)))
+
+
 def test_k2_commit_matches_plain(cuda):
     states = gf.from_u64(_rand((1 << 12, 16))).to(cuda)
     got = tip5_commit.commit_states(states, 12)

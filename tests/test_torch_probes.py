@@ -15,7 +15,7 @@ from twenty_first_tpu.math import ntt as jntt
 from twenty_first_tpu.math.b_field_element import P
 from twenty_first_tpu_torch.math import gf, ntt
 from twenty_first_tpu_torch.ops import ntt_cuda, probe_cuda
-from twenty_first_tpu_torch.probes import alu_probe, pass_probe
+from twenty_first_tpu_torch.probes import alu_probe, pass_probe, tip5_probe
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -143,3 +143,92 @@ def test_alu_probe_reads_the_step_loop_from_sass():
                                                   "@P0"]
     assert alu_probe.loop_body(sass.replace("`(.L_x_0)", "0x10")
                                .splitlines()) == body[:2] + ["@P0 BRA 0x10"]
+
+
+def test_sass_per_perm_reads_the_innermost_round_loop():
+    """Two nested loops (levels around rounds) and a table-load loop: the
+    round loop is the innermost one with the most IMAD-family work."""
+    sass = """
+.L_x_0:
+        /*0000*/                   LDS.U8 R1, [R2] ;
+        /*0010*/              @P0 BRA `(.L_x_0) ;
+.L_x_1:
+        /*0020*/                   IADD3 R6, R6, 0x1, RZ ;
+.L_x_2:
+        /*0030*/                   IMAD.WIDE.U32 R2, R4, R5, RZ ;
+        /*0040*/                   DFMA R8, R8, R10, R8 ;
+        /*0050*/                   IMAD.X R3, RZ, RZ, R3 ;
+        /*0060*/              @P1 BRA `(.L_x_2) ;
+        /*0070*/              @P2 BRA `(.L_x_1) ;
+        /*0080*/                   EXIT ;
+"""
+    kernels = {"_Z20merkle_commit_kernelv": sass.splitlines()}
+    got = alu_probe.sass_per_perm(kernels, "merkle_commit_kernel", 5)
+    assert got["round_instructions"] == 4
+    assert got["sass_per_perm"] == 20 and got["imad_per_perm"] == 10
+    assert got["round_opcodes"]["DFMA"] == 1
+    assert alu_probe.sass_per_perm(None, "x", 5)["sass_per_perm"].startswith(
+        "not measured")
+
+
+_PTXAS_LOG = """ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'
+ptxas info    : Function properties for _Z1kv
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 156 registers, used 1 barriers, 896 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1jv' for 'sm_90a'
+ptxas info    : Function properties for _Z1jv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 28 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_and_resident_warps(monkeypatch):
+    """Registers and spills from the compiler's report; resident warps from
+    the CUDA runtime's occupancy, for this build only."""
+    rep = tip5_probe.ptxas_report(_PTXAS_LOG)
+    assert rep["_Z1kv"] == {"spill_bytes": 16, "registers": 156,
+                            "smem_bytes": 896}
+    assert rep["_Z1jv"] == {"spill_bytes": 0, "registers": 28,
+                            "smem_bytes": 0}
+    from twenty_first_tpu_torch import _build
+    from twenty_first_tpu_torch.ops import tip5_cuda
+
+    k1 = "_Z19tip5_permute_kernelILi0EEvPKmPmlS1_PKh"
+    monkeypatch.setattr(_build, "sass", lambda library=None: None)
+    monkeypatch.setattr(_build, "build_log", lambda library=None:
+                        _PTXAS_LOG.replace("_Z1kv", k1))
+    monkeypatch.setattr(tip5_cuda, "occupancy",
+                        lambda name, device=None, threads=256: (threads, 3))
+    stats = tip5_probe.kernel_stats()
+    assert list(stats) == ["tip5_permute"]
+    assert stats["tip5_permute"]["registers"] == 156
+    assert stats["tip5_permute"]["spill_bytes"] == 16
+    assert stats["tip5_permute"]["resident_warps_per_sm"] == 12
+    assert stats["tip5_permute"]["sass_per_perm"].startswith("not measured")
+    other = tip5_probe.kernel_stats(Path("other.so"))
+    assert "resident_warps_per_sm" not in other["tip5_permute"]
+
+
+def test_issue_bound_and_counts():
+    stats = {"a": {"sass_per_perm": 100, "registers": 40},
+             "b": {"sass_per_perm": 300},
+             "c": {"sass_per_perm": "not measured (no cuobjdump)"}}
+    assert tip5_probe.issue_bound_ms(stats, {"a": 10, "b": 2}, 1e6) == \
+        pytest.approx((100 * 10 + 300 * 2) / 1e6 * 1e3)
+    for rate in (None, float("nan")):
+        assert tip5_probe.issue_bound_ms(stats, {"a": 1}, rate) == \
+            "not measured"
+    assert tip5_probe.issue_bound_ms(stats, {"c": 1}, 1e6) == "not measured"
+    got = tip5_probe.counts(stats, "a", 10, 1e6)
+    assert got["registers"] == 40 and got["spill_bytes"] == "not measured"
+    assert got["issue_bound_ms"] == pytest.approx(1.0)
+
+
+def test_tree_summary_splits_levels_from_the_tail():
+    launches = [{"launch": "level", "levels": 1, "rows_in": 8, "ms": 2.0},
+                {"launch": "fused", "levels": 2, "rows_in": 4, "ms": 0.5},
+                {"launch": "fused", "levels": 1, "rows_in": 1, "ms": 0.25}]
+    got = tip5_probe.tree_summary(launches)
+    assert got == {"launches": 3, "full_width_level_ms": [2.0],
+                   "tail_launches": 2, "tail_levels": 3, "tail_ms": 0.75,
+                   "tail_ms_per_level": 0.25}

@@ -28,13 +28,18 @@ NVCC_FLAGS = (
 
 _VP, _I, _LL, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_ulonglong)
+_PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # in, out, rows, rc, lut, stream
     "tf_tip5_permute": (_VP, _VP, _LL, _VP, _VP, _VP),
     # in, out (rows, 6, 16), rows, rc, lut, stream
     "tf_tip5_trace": (_VP, _VP, _LL, _VP, _VP, _VP),
+    # in, out, parents, leaf, rc, lut, stream
+    "tf_merkle_level": (_VP, _VP, _LL, _I, _VP, _VP, _VP),
     # in, out, blocks, threads, leaf, levels, rc, lut, stream
     "tf_merkle_commit": (_VP, _VP, _LL, _I, _I, _I, _VP, _VP, _VP),
+    # kernel, threads, out block size, out resident blocks per SM
+    "tf_tip5_occupancy": (_I, _I, _PI, _PI),
     # in, out, log_t, log_tc, ncols, nbatch, in strides (b, e, c),
     # out strides (b, e, c), tw, diag, diag strides (e, c), scale, stream
     "tf_ntt_local_pass": (_VP, _VP, _I, _I, _LL, _I, _LL, _LL, _LL, _LL, _LL,
@@ -93,21 +98,23 @@ def build() -> Path:
     return so
 
 
-def build_log() -> str:
-    path = _library_path().with_suffix(".log")
+def build_log(library: Path | None = None) -> str:
+    """The compiler's report kept beside ``library`` (this build's by
+    default)."""
+    path = Path(library or _library_path()).with_suffix(".log")
     return path.read_text() if path.exists() else ""
 
 
-def sass() -> dict[str, list[str]] | None:
-    """The built library's SASS by ``cuobjdump -sass``: each kernel's
-    (mangled) name -> its instruction lines. None where the toolkit has no
-    cuobjdump."""
+def sass(library: Path | None = None) -> dict[str, list[str]] | None:
+    """A built library's SASS by ``cuobjdump -sass`` (this build's by
+    default): each kernel's (mangled) name -> its instruction lines. None
+    where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return None
-    proc = subprocess.run([tool, "-sass", str(build())], capture_output=True,
-                          text=True, check=True)
+    proc = subprocess.run([tool, "-sass", str(library or build())],
+                          capture_output=True, text=True, check=True)
     kernels: dict[str, list[str]] = {}
     lines = None
     for line in proc.stdout.splitlines():

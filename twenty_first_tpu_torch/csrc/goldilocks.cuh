@@ -75,23 +75,4 @@ __device__ __forceinline__ uint64_t add_lazy(uint64_t a, uint64_t b) {
   return s + k * EPSILON;
 }
 
-// a^E for a compile-time exponent E > 0, square and multiply; the loops
-// have constant trip counts and unroll (x^7: two squares, two products).
-template <uint64_t E>
-__device__ __forceinline__ uint64_t pow(uint64_t a) {
-  static_assert(E > 0, "exponent must be positive");
-  uint64_t base = a;
-  uint64_t e = E;
-  while (!(e & 1)) {
-    base = mul(base, base);
-    e >>= 1;
-  }
-  uint64_t result = base;
-  for (e >>= 1; e; e >>= 1) {
-    base = mul(base, base);
-    if (e & 1) result = mul(result, base);
-  }
-  return result;
-}
-
 }  // namespace gl

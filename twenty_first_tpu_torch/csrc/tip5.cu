@@ -1,29 +1,49 @@
-// Tip5 on Hopper: the permutation (K1) and the multi-level Merkle commit (K2).
+// Tip5 on Hopper: the permutation (K1) and the Merkle tree (K2).
 //
 // Replaces the Pallas kernels of twenty_first_tpu/ops/tip5_pallas.py:
-//   * K1 tip5_permute_kernel <- _dense_kernel (:252), launched by
+//   * K1 tip5_permute_kernel<kPermute> <- _dense_kernel (:252), launched by
 //     permute_packed (:421); it also computes the function of the narrow
 //     _permutation_kernel (:102) and of permutation_dense (:383), which
-//     ops/tip5_batch.py launches through it. A compile-time trace mode
+//     ops/tip5_batch.py launches through it. tip5_permute_kernel<kTrace>
 //     gives tip5/permutation.py::trace (:204).
-//   * K2 merkle_commit_kernel <- _make_dense_multi_kernel (:262), launched
-//     by permute_packed_multi (:302), together with the pairing glue of
-//     ops/tip5_packed.py (pair_packed :99, _packed_chain :132).
+//   * K2, the Merkle tree <- permute_packed_multi (:302) /
+//     _make_dense_multi_kernel (:262), with the pairing glue of
+//     ops/tip5_packed.py (pair_packed :99, _packed_chain :132). Two kernels:
+//     tip5_permute_kernel<kPair> (and <kLeaf>) reduces one level at full
+//     width, merkle_commit_kernel fuses the levels of the tail.
 //
-// What bounds them: 64-bit integer multiplies. A round costs 8 modular
-// products for the S-box's Montgomery conversions, 48 for x^7 on words
-// 4..15 and 512 32x32->64 multiply-adds for the MDS; memory traffic (128
-// bytes in and out per state) is small beside that.
+// What bounds them on this card: instruction issue, pipe by pipe. A
+// permutation is 5 rounds of 4 byte-lookup S-boxes, 12 x^7 (48 modular
+// products) and a 16x16 MDS. One state per thread keeps every word in
+// registers and moves nothing between threads; the memory traffic (128
+// bytes in and out per state) is small beside the arithmetic. Integer
+// multiplies go to the FMA pipe and integer adds, compares and selects to
+// the ALU pipe, each at half the issue rate, so the design takes
+// instructions off both and gives work to the FP64 pipe beside them:
+//   * the MDS is an exact matvec on 32-bit halves in double FMAs, the
+//     16-bit entries as constants: every half-sum, with the round constant
+//     as its start, stays below 2^52, so a double holds it exactly and the
+//     round-constant addition costs nothing;
+//   * x^7 works on lazy residues (any u64 congruent to the value): each
+//     product is one PTX carry chain of 32-bit multiply-adds and a lazy
+//     reduction, with no compare, select or final subtraction; the MDS's
+//     32-bit split takes any u64, and the state is made canonical only
+//     where it is written;
+//   * the S-box's Montgomery conversions are shifts and adds: x * 2^64 =
+//     x0 * (2^32 - 1) - x1 for x = x1 * 2^32 + x0, and the way back is one
+//     Montgomery reduction of a 64-bit word. The bytes looked up are those
+//     of the canonical Montgomery form.
 //
-// What the design does about it: one thread owns one state, its 16 words in
-// registers, so no data moves between threads inside a permutation. The
-// MDS is an exact integer matvec on 32-bit halves (the 16-bit entries keep
-// each accumulator below 2^52) followed by ONE 128-bit Goldilocks reduction
-// per word, instead of 256 modular products. The round constants and the
-// byte table sit in shared memory (every thread of a warp reads the same
-// constant: a broadcast). The TPU's (8,16) lane packing and evens-first
-// reorder existed only for TPU lanes: K2 has a block read 2^L consecutive
-// digests and pair neighbours directly in shared memory.
+// K2's tree: a block that reduces several levels in shared memory halves
+// its working threads at every level, so most of its life one warp or less
+// works. Each level whose parents fill the card's resident threads runs
+// instead as one full-width launch, a thread per parent reading its two
+// children (80 contiguous bytes, five 16-byte loads), so every warp works
+// at every such level. The levels below that size are bound by the latency
+// of one permutation whatever is done: they stay fused, up to 9 levels per
+// launch, a block pairing neighbours through shared memory.
+// ops/tip5_commit.py plans the launches from the row count and the
+// resident thread count.
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
@@ -34,148 +54,335 @@ constexpr int kState = 16;
 constexpr int kRounds = 5;
 constexpr int kRate = 10;
 constexpr int kDigest = 5;
-constexpr int kSbox = 4;  // words through the byte lookup
-constexpr int kMaxThreads = 256;
-constexpr uint64_t kR = 0xFFFFFFFFull;             // 2^64 mod p
-constexpr uint64_t kRInv = 0xFFFFFFFE00000001ull;  // 2^-64 mod p
+constexpr int kSbox = 4;          // words through the byte lookup
+constexpr int kMaxThreads = 256;  // the fused tail's largest block
+constexpr int kRowThreads = 128;  // K1 and the level kernel
 
-__device__ __forceinline__ uint32_t mds_col(int k) {
-  // SHA-256("Tip5") as little-endian 16-bit chunks (tip5/constants.py)
-  constexpr uint32_t col[16] = {61402, 1108,  28750, 33823, 7454,  43244,
-                                53865, 12034, 56951, 27521, 41351, 40901,
-                                12021, 59689, 26798, 17845};
+// SHA-256("Tip5") as little-endian 16-bit chunks (tip5/constants.py)
+__device__ __forceinline__ double mds_col(int k) {
+  constexpr double col[16] = {61402, 1108,  28750, 33823, 7454,  43244,
+                              53865, 12034, 56951, 27521, 41351, 40901,
+                              12021, 59689, 26798, 17845};
   return col[k & 15];
 }
 
-// Byte lookup on the Montgomery representative x * 2^64 mod p; the bytes
-// after the lookup form any u64, which from-Montgomery accepts.
-__device__ __forceinline__ uint64_t sbox_lookup(uint64_t x,
-                                                const uint8_t* lut) {
-  const uint64_t m = gl::mul(x, kR);
-  uint64_t o = 0;
-#pragma unroll
-  for (int k = 0; k < 64; k += 8) {
-    o |= static_cast<uint64_t>(lut[(m >> k) & 0xFF]) << k;
-  }
-  return gl::mul(o, kRInv);
+__device__ __forceinline__ uint32_t lo32(uint64_t x) {
+  return static_cast<uint32_t>(x);
+}
+__device__ __forceinline__ uint32_t hi32(uint64_t x) {
+  return static_cast<uint32_t>(x >> 32);
+}
+__device__ __forceinline__ uint64_t join(uint32_t lo, uint32_t hi) {
+  return (static_cast<uint64_t>(hi) << 32) | lo;
 }
 
-// out[i] = sum_j col[(i - j) mod 16] * s[j] over the integers (< 2^84),
-// then one reduction per word.
-__device__ __forceinline__ void mds(uint64_t s[kState]) {
-  uint32_t lo[kState], hi[kState];
+// a * b for any u64 residues, a lazy residue out: the 128-bit product
+// p = (p3, p2, p1, p0) as a carry chain of 32-bit multiply-adds, then
+// p mod p = (p1, p0) + p2 * (2^32 - 1) - p3 (2^64 = 2^32 - 1, 2^96 = -1),
+// each wrap of the 64-bit sum worth 2^32 - 1 through the carry: the value
+// of gl::reduce128_lazy, without compares or selects.
+__device__ __forceinline__ uint64_t mul_red(uint64_t a, uint64_t b) {
+  uint32_t r0, r1;
+  asm("{\n\t.reg .u32 p0, p1, p2, p3, m0, m1, c;\n\t"
+      "mul.lo.u32 p0, %2, %4;\n\t"
+      "mul.hi.u32 p1, %2, %4;\n\t"
+      "mad.lo.cc.u32 p1, %2, %5, p1;\n\t"
+      "madc.hi.u32 p2, %2, %5, 0;\n\t"
+      "mad.lo.cc.u32 p1, %3, %4, p1;\n\t"
+      "madc.hi.cc.u32 p2, %3, %4, p2;\n\t"
+      "madc.hi.u32 p3, %3, %5, 0;\n\t"
+      "mad.lo.cc.u32 p2, %3, %5, p2;\n\t"
+      "addc.u32 p3, p3, 0;\n\t"
+      "sub.cc.u32 %0, p0, p3;\n\t"  // (p1, p0) - p3
+      "subc.cc.u32 %1, p1, 0;\n\t"
+      "subc.u32 c, 0, 0;\n\t"  // 2^32 - 1 on a borrow, else 0
+      "sub.cc.u32 %0, %0, c;\n\t"
+      "subc.u32 %1, %1, 0;\n\t"
+      "sub.cc.u32 m0, 0, p2;\n\t"  // m = p2 * 2^32 - p2
+      "subc.u32 m1, p2, 0;\n\t"
+      "add.cc.u32 %0, %0, m0;\n\t"
+      "addc.cc.u32 %1, %1, m1;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "neg.s32 c, c;\n\t"  // 2^32 - 1 on a carry, else 0
+      "add.cc.u32 %0, %0, c;\n\t"
+      "addc.u32 %1, %1, 0;\n\t}"
+      : "=r"(r0), "=r"(r1)
+      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)));
+  return join(r0, r1);
+}
+
+__device__ __forceinline__ uint64_t pow7(uint64_t x) {
+  const uint64_t x3 = mul_red(mul_red(x, x), x);
+  return mul_red(mul_red(x3, x3), x);
+}
+
+// x * 2^64 mod p, canonical, for any u64 x = x1 * 2^32 + x0: with
+// 2^64 = 2^32 - 1 and 2^96 = -1 it is x0 * (2^32 - 1) - x1, and
+// x0 * (2^32 - 1) < p, so adding p on a borrow makes it canonical.
+__device__ __forceinline__ uint64_t to_montgomery(uint64_t x) {
+  uint32_t r0, r1;
+  asm("{\n\t.reg .u32 a0, a1, b;\n\t"
+      "sub.cc.u32 a0, 0, %2;\n\t"  // a = x0 * 2^32 - x0
+      "subc.u32 a1, %2, 0;\n\t"
+      "sub.cc.u32 %0, a0, %3;\n\t"  // a - x1
+      "subc.cc.u32 %1, a1, 0;\n\t"
+      "subc.u32 b, 0, 0;\n\t"  // + p = - (2^32 - 1) mod 2^64 on a borrow
+      "sub.cc.u32 %0, %0, b;\n\t"
+      "subc.u32 %1, %1, 0;\n\t}"
+      : "=r"(r0), "=r"(r1)
+      : "r"(lo32(x)), "r"(hi32(x)));
+  return join(r0, r1);
+}
+
+// x * 2^-64 mod p for any u64 x: one Montgomery reduction of (x, 0), the
+// Tip5 reference's montyred with a zero high word (-p^-1 = -(1 + 2^32)
+// mod 2^64): b = a - (a >> 32) - carry with a = x + (x << 32) is never
+// above p - 1, and the value is p - b (p itself when b = 0: a lazy
+// residue, which the MDS takes).
+__device__ __forceinline__ uint64_t from_montgomery(uint64_t x) {
+  uint32_t r0, r1;
+  asm("{\n\t.reg .u32 a1, e, b0, b1;\n\t"
+      "add.cc.u32 a1, %3, %2;\n\t"  // a = (x1 + x0) * 2^32 + x0
+      "addc.u32 e, 0, 0;\n\t"
+      "sub.cc.u32 b0, %2, a1;\n\t"  // b = a - a1 - e
+      "subc.u32 b1, a1, 0;\n\t"
+      "sub.cc.u32 b0, b0, e;\n\t"
+      "subc.u32 b1, b1, 0;\n\t"
+      "sub.cc.u32 %0, 1, b0;\n\t"  // p - b
+      "subc.u32 %1, 0xFFFFFFFF, b1;\n\t}"
+      : "=r"(r0), "=r"(r1)
+      : "r"(lo32(x)), "r"(hi32(x)));
+  return join(r0, r1);
+}
+
+// The byte lookup on the canonical Montgomery form of x.
+__device__ __forceinline__ uint64_t sbox_lookup(uint64_t x,
+                                                const uint8_t* lut) {
+  const uint64_t m = to_montgomery(x);
+  uint32_t o0 = 0, o1 = 0;
+#pragma unroll
+  for (int k = 0; k < 32; k += 8) {
+    o0 |= static_cast<uint32_t>(lut[(lo32(m) >> k) & 0xFF]) << k;
+    o1 |= static_cast<uint32_t>(lut[(hi32(m) >> k) & 0xFF]) << k;
+  }
+  return from_montgomery(join(o0, o1));
+}
+
+// An exact double below 2^52 as an integer: the low 52 bits of 2^52 + d.
+__device__ __forceinline__ uint64_t exact_u64(double d) {
+  return static_cast<uint64_t>(__double_as_longlong(d + 4503599627370496.0)) &
+         ((1ull << 52) - 1);
+}
+
+// acc_lo + acc_hi * 2^32 (both below 2^52) as a lazy residue: it is
+// lo64 + q * 2^64 with q < 2^21 and 2^64 = 2^32 - 1, so
+// lo64 + q * 2^32 - q, plus 2^32 - 1 if that sum wraps.
+__device__ __forceinline__ uint64_t combine(uint64_t acc_lo, uint64_t acc_hi) {
+  uint32_t r0, r1;
+  asm("{\n\t.reg .u32 q, m0, m1, b;\n\t"
+      "add.cc.u32 %1, %3, %4;\n\t"  // lo64 = acc_lo + (acc_hi << 32)
+      "addc.u32 q, %5, 0;\n\t"      // q = (acc_hi >> 32) + carry
+      "sub.cc.u32 m0, 0, q;\n\t"    // m = q * 2^32 - q
+      "subc.u32 m1, q, 0;\n\t"
+      "add.cc.u32 %0, %2, m0;\n\t"  // lo64 + m
+      "addc.cc.u32 %1, %1, m1;\n\t"
+      "addc.u32 b, 0, 0;\n\t"
+      "neg.s32 b, b;\n\t"
+      "add.cc.u32 %0, %0, b;\n\t"
+      "addc.u32 %1, %1, 0;\n\t}"
+      : "=r"(r0), "=r"(r1)
+      : "r"(lo32(acc_lo)), "r"(hi32(acc_lo)), "r"(lo32(acc_hi)),
+        "r"(hi32(acc_hi)));
+  return join(r0, r1);
+}
+
+// s <- MDS(s) + rc for lazy words s: out[i] = rc[i] + sum_j col[(i - j)
+// mod 16] * s[j] over the integers, on 32-bit halves. A half-sum is at
+// most (2^32 - 1) * 524757 + 2^32 - 1 < 2^52 (524757 the column's sum),
+// so the double FMAs are exact. rc holds the round's 16 constants as
+// (low half, high half) pairs of doubles.
+__device__ __forceinline__ void mds_add_rc(uint64_t s[kState],
+                                           const double2* rc) {
+  double lo[kState], hi[kState];
 #pragma unroll
   for (int j = 0; j < kState; ++j) {
-    lo[j] = static_cast<uint32_t>(s[j]);
-    hi[j] = static_cast<uint32_t>(s[j] >> 32);
+    lo[j] = static_cast<double>(lo32(s[j]));
+    hi[j] = static_cast<double>(hi32(s[j]));
   }
 #pragma unroll
   for (int i = 0; i < kState; ++i) {
-    uint64_t acc_lo = 0, acc_hi = 0;
+    double acc_lo = rc[i].x;
+    double acc_hi = rc[i].y;
 #pragma unroll
     for (int j = 0; j < kState; ++j) {
-      const uint64_t c = mds_col(i - j);
-      acc_lo += c * lo[j];
-      acc_hi += c * hi[j];
+      acc_lo = fma(mds_col(i - j), lo[j], acc_lo);
+      acc_hi = fma(mds_col(i - j), hi[j], acc_hi);
     }
-    // acc_lo + acc_hi * 2^32 as a 128-bit (lo64, hi64) pair
-    const uint64_t mid = (acc_lo >> 32) + (acc_hi & 0xFFFFFFFFull);
-    const uint64_t lo64 = (acc_lo & 0xFFFFFFFFull) | (mid << 32);
-    const uint64_t hi64 = (acc_hi >> 32) + (mid >> 32);
-    s[i] = gl::reduce128(lo64, hi64);
+    s[i] = combine(exact_u64(acc_lo), exact_u64(acc_hi));
   }
 }
 
-// kTrace also writes the state after round r to trace[(r + 1) * 16 ..];
-// without it the function is the plain permutation (the flag is resolved
-// at compile time, so K1's and K2's code does not change).
-template <bool kTrace = false>
-__device__ __forceinline__ void permute(uint64_t s[kState], const uint64_t* rc,
+// The permutation of one state in registers, canonical out. after_round(r,
+// s) sees the lazy state after round r (the trace mode writes it; the
+// others pass a no-op, which compiles away).
+template <typename AfterRound>
+__device__ __forceinline__ void permute(uint64_t s[kState], const double2* rc,
                                         const uint8_t* lut,
-                                        uint64_t* trace = nullptr) {
+                                        AfterRound after_round) {
 #pragma unroll 1
   for (int r = 0; r < kRounds; ++r) {
 #pragma unroll
     for (int i = 0; i < kSbox; ++i) s[i] = sbox_lookup(s[i], lut);
 #pragma unroll
-    for (int i = kSbox; i < kState; ++i) s[i] = gl::pow<7>(s[i]);
-    mds(s);
-#pragma unroll
-    for (int i = 0; i < kState; ++i) s[i] = gl::add(s[i], rc[r * kState + i]);
-    if constexpr (kTrace) {
-#pragma unroll
-      for (int i = 0; i < kState; ++i) trace[(r + 1) * kState + i] = s[i];
-    }
+    for (int i = kSbox; i < kState; ++i) s[i] = pow7(s[i]);
+    mds_add_rc(s, rc + r * kState);
+    after_round(r, s);
   }
+#pragma unroll
+  for (int i = 0; i < kState; ++i) s[i] = gl::canon(s[i]);
 }
 
-__device__ __forceinline__ void load_tables(uint64_t* rc, uint8_t* lut,
+__device__ __forceinline__ void permute(uint64_t s[kState], const double2* rc,
+                                        const uint8_t* lut) {
+  permute(s, rc, lut, [](int, const uint64_t*) {});
+}
+
+// The block's tables in shared memory: the round constants as (low half,
+// high half) doubles, which the MDS's accumulators start from, and the
+// byte table.
+__device__ __forceinline__ void load_tables(double2* rc, uint8_t* lut,
                                             const uint64_t* rc_g,
                                             const uint8_t* lut_g) {
   for (int i = threadIdx.x; i < kRounds * kState; i += blockDim.x) {
-    rc[i] = rc_g[i];
+    rc[i] = make_double2(lo32(rc_g[i]), hi32(rc_g[i]));
   }
   for (int i = threadIdx.x; i < 256; i += blockDim.x) lut[i] = lut_g[i];
 }
 
-// K1: (rows, 16) states -> (rows, 16) permuted states, one thread per state.
-// Trace mode (kTrace, the counterpart of tip5/permutation.py::trace :204)
-// writes (rows, 6, 16) instead: the input state, then the canonical state
-// after each of the five rounds.
-template <bool kTrace>
-__global__ void __launch_bounds__(kMaxThreads)
-    tip5_permute_kernel(const uint64_t* in, uint64_t* out, int64_t rows,
+// n words from src to s in 16-byte loads (src 16-byte aligned, n even)
+template <int kWords>
+__device__ __forceinline__ void load_words(uint64_t* s, const uint64_t* src) {
+  const ulonglong2* v = reinterpret_cast<const ulonglong2*>(src);
+#pragma unroll
+  for (int k = 0; k < kWords / 2; ++k) {
+    const ulonglong2 w = v[k];
+    s[2 * k] = w.x;
+    s[2 * k + 1] = w.y;
+  }
+}
+
+enum Mode : int {
+  kPermute = 0,  // (rows, 16) states -> (rows, 16) permuted (K1)
+  kTrace = 1,    // (rows, 16) -> (rows, 6, 16): input and each round's state
+  kPair = 2,     // (2 rows, 5) digests -> (rows, 5): one tree level (K2)
+  kLeaf = 3,     // (rows, 16) leaf states -> (rows, 5) digests (K2)
+};
+
+// The trace mode's writes: a warp stages the 16 words of its 32 rows in
+// shared memory (rows padded to 18 words, so each row starts 16-byte
+// aligned) and stores them as 16-byte chunks, 8 lanes to a row's 128
+// contiguous bytes, into slot `slot` of each row's (6, 16) block.
+__device__ __forceinline__ void write_trace_slot(
+    uint64_t (*stage)[kState + 2], const uint64_t* s, uint64_t* out,
+    int64_t warp_row, int64_t rows, int slot) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kState; ++i) stage[lane][i] = s[i];
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < kState / 2; ++k) {
+    const int chunk = lane + 32 * k;  // row chunk / 8, 16-byte part chunk % 8
+    const int64_t row = warp_row + chunk / 8;
+    if (row < rows) {
+      const ulonglong2 v =
+          *reinterpret_cast<const ulonglong2*>(&stage[chunk / 8][2 * (chunk % 8)]);
+      reinterpret_cast<ulonglong2*>(
+          out + (row * (kRounds + 1) + slot) * kState)[chunk % 8] = v;
+    }
+  }
+  __syncwarp();
+}
+
+// One thread per output row. kPair pairs children 2j, 2j + 1 into parent
+// j: rate words 0..9 the two digests (80 contiguous bytes), capacity words
+// 10..15 set to 1 (the FixedLength domain).
+template <int kMode>
+__global__ void __launch_bounds__(kRowThreads)
+    tip5_permute_kernel(const uint64_t* __restrict__ in,
+                        uint64_t* __restrict__ out, int64_t rows,
                         const uint64_t* rc_g, const uint8_t* lut_g) {
-  __shared__ uint64_t rc[kRounds * kState];
+  __shared__ double2 rc[kRounds * kState];
   __shared__ uint8_t lut[256];
   load_tables(rc, lut, rc_g, lut_g);
   __syncthreads();
   const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
-  if (row >= rows) return;
   uint64_t s[kState];
+  if constexpr (kMode == kTrace) {
+    // every lane stays to the end for the warp's staged writes; a lane past
+    // the last row permutes zeros and writes nothing
+    __shared__ __align__(16) uint64_t stage[kRowThreads / 32][32][kState + 2];
+    auto* mine = stage[threadIdx.x / 32];
+    const int64_t warp_row = row - (threadIdx.x & 31);
+    if (row < rows) {
+      load_words<kState>(s, in + row * kState);
+    } else {
 #pragma unroll
-  for (int i = 0; i < kState; ++i) s[i] = in[row * kState + i];
-  if constexpr (kTrace) {
-    uint64_t* trace = out + row * (kRounds + 1) * kState;
+      for (int i = 0; i < kState; ++i) s[i] = 0;
+    }
+    write_trace_slot(mine, s, out, warp_row, rows, 0);
+    permute(s, rc, lut, [&](int r, const uint64_t* w) {
+      uint64_t c[kState];
 #pragma unroll
-    for (int i = 0; i < kState; ++i) trace[i] = s[i];
-    permute<true>(s, rc, lut, trace);
+      for (int i = 0; i < kState; ++i) c[i] = gl::canon(w[i]);
+      write_trace_slot(mine, c, out, warp_row, rows, r + 1);
+    });
+    return;
+  }
+  if (row >= rows) return;
+  if constexpr (kMode == kPair) {
+    load_words<kRate>(s, in + row * kRate);
+#pragma unroll
+    for (int i = kRate; i < kState; ++i) s[i] = 1;
   } else {
-    permute(s, rc, lut);
+    load_words<kState>(s, in + row * kState);
+  }
+  permute(s, rc, lut);
+  if constexpr (kMode == kPermute) {
+    ulonglong2* dst = reinterpret_cast<ulonglong2*>(out + row * kState);
 #pragma unroll
-    for (int i = 0; i < kState; ++i) out[row * kState + i] = s[i];
+    for (int k = 0; k < kState / 2; ++k) {
+      dst[k] = make_ulonglong2(s[2 * k], s[2 * k + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < kDigest; ++w) out[row * kDigest + w] = s[w];
   }
 }
 
-// K2: a block of T threads reduces `levels` Merkle levels.
+// K2's fused tail: a block of T threads reduces `levels` Merkle levels.
 //   leaf mode: T leaf states (rows, 16) -> permute -> T digests -> `levels`
 //              pair levels -> T >> levels digests;
 //   pair mode: 2T digests (rows, 5) -> `levels` pair levels (the first
 //              straight from global memory) -> 2T >> levels digests.
-// Parent j = hash_pair(child 2j, child 2j + 1): words 0..9 the two digests,
-// capacity words 10..15 set to 1 (the FixedLength domain). Level by level
-// the digests go through shared memory and the active threads halve.
+// Level by level the digests go through shared memory and the active
+// threads halve.
 __global__ void __launch_bounds__(kMaxThreads)
-    merkle_commit_kernel(const uint64_t* in, uint64_t* out, int leaf,
-                         int levels, const uint64_t* rc_g,
-                         const uint8_t* lut_g) {
-  __shared__ uint64_t rc[kRounds * kState];
+    merkle_commit_kernel(const uint64_t* __restrict__ in,
+                         uint64_t* __restrict__ out, int leaf, int levels,
+                         const uint64_t* rc_g, const uint8_t* lut_g) {
+  __shared__ double2 rc[kRounds * kState];
   __shared__ uint8_t lut[256];
   __shared__ uint64_t dig[kMaxThreads * kDigest];
   load_tables(rc, lut, rc_g, lut_g);
   __syncthreads();
   const int t = threadIdx.x;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + t;
   uint64_t s[kState];
   if (leaf) {
-    const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + t;
-#pragma unroll
-    for (int i = 0; i < kState; ++i) s[i] = in[row * kState + i];
+    load_words<kState>(s, in + row * kState);
   } else {
-    const int64_t pair = static_cast<int64_t>(blockIdx.x) * blockDim.x + t;
-    const uint64_t* src = in + pair * 2 * kDigest;  // two adjacent digests
-#pragma unroll
-    for (int i = 0; i < kRate; ++i) s[i] = src[i];
+    load_words<kRate>(s, in + row * kRate);  // two adjacent digests
 #pragma unroll
     for (int i = kRate; i < kState; ++i) s[i] = 1;
   }
@@ -202,24 +409,19 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
   }
   if (active) {
-    const int64_t row = static_cast<int64_t>(blockIdx.x) * cnt + t;
+    const int64_t o = static_cast<int64_t>(blockIdx.x) * cnt + t;
 #pragma unroll
-    for (int w = 0; w < kDigest; ++w) out[row * kDigest + w] = s[w];
+    for (int w = 0; w < kDigest; ++w) out[o * kDigest + w] = s[w];
   }
 }
 
-}  // namespace
-
-namespace {
-
-template <bool kTrace>
-int launch_permute(const void* in, void* out, long long rows, const void* rc,
-                   const void* lut, void* stream) {
-  constexpr int threads = 128;
+template <int kMode>
+int launch_rows(const void* in, void* out, long long rows, const void* rc,
+                const void* lut, void* stream) {
   if (rows > 0) {
-    const long long blocks = (rows + threads - 1) / threads;
-    tip5_permute_kernel<kTrace><<<static_cast<unsigned>(blocks), threads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
+    const long long blocks = (rows + kRowThreads - 1) / kRowThreads;
+    tip5_permute_kernel<kMode><<<static_cast<unsigned>(blocks), kRowThreads,
+                                 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out), rows,
         static_cast<const uint64_t*>(rc), static_cast<const uint8_t*>(lut));
   }
@@ -231,13 +433,22 @@ int launch_permute(const void* in, void* out, long long rows, const void* rc,
 extern "C" int tf_tip5_permute(const void* in, void* out, long long rows,
                                const void* rc, const void* lut,
                                void* stream) {
-  return launch_permute<false>(in, out, rows, rc, lut, stream);
+  return launch_rows<kPermute>(in, out, rows, rc, lut, stream);
 }
 
 // out: (rows, 6, 16), see tip5_permute_kernel's trace mode
 extern "C" int tf_tip5_trace(const void* in, void* out, long long rows,
                              const void* rc, const void* lut, void* stream) {
-  return launch_permute<true>(in, out, rows, rc, lut, stream);
+  return launch_rows<kTrace>(in, out, rows, rc, lut, stream);
+}
+
+// One tree level at full width: `parents` digests out, from 2 * parents
+// digests (pair mode) or from `parents` leaf states (leaf mode).
+extern "C" int tf_merkle_level(const void* in, void* out, long long parents,
+                               int leaf, const void* rc, const void* lut,
+                               void* stream) {
+  return leaf ? launch_rows<kLeaf>(in, out, parents, rc, lut, stream)
+              : launch_rows<kPair>(in, out, parents, rc, lut, stream);
 }
 
 extern "C" int tf_merkle_commit(const void* in, void* out, long long blocks,
@@ -256,6 +467,28 @@ extern "C" int tf_merkle_commit(const void* in, void* out, long long blocks,
         static_cast<const uint8_t*>(lut));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The block size and resident blocks per SM of a kernel on the current
+// device: 0 K1, 1 its trace mode, 2 the level kernel (all at their fixed
+// block size), 3 the fused tail at `threads`.
+extern "C" int tf_tip5_occupancy(int kernel, int threads, int* block,
+                                 int* blocks_per_sm) {
+  const void* fn = nullptr;
+  int size = kRowThreads;
+  switch (kernel) {
+    case 0: fn = reinterpret_cast<const void*>(tip5_permute_kernel<kPermute>); break;
+    case 1: fn = reinterpret_cast<const void*>(tip5_permute_kernel<kTrace>); break;
+    case 2: fn = reinterpret_cast<const void*>(tip5_permute_kernel<kPair>); break;
+    case 3:
+      fn = reinterpret_cast<const void*>(merkle_commit_kernel);
+      size = threads;
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *block = size;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, size, 0));
 }
 
 extern "C" const char* tf_error_string(int err) {

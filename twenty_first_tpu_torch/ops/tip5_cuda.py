@@ -6,15 +6,21 @@ The counterpart of ``twenty_first_tpu/ops/tip5_pallas.py``:
   (rows, 16) states -> permuted states, one thread per state; its trace
   mode ``tip5_trace`` (a compile-time variant of the same kernel) writes
   the (rows, 6, 16) round states of ``tip5/permutation.py::trace``;
-* K2 ``merkle_commit`` (replaces ``permute_packed_multi`` /
-  ``_make_dense_multi_kernel`` and the ``tip5_packed`` pairing glue): one
-  launch reduces several Merkle levels, a block at a time.
+* K2, the Merkle tree (replaces ``permute_packed_multi`` /
+  ``_make_dense_multi_kernel`` and the ``tip5_packed`` pairing glue), two
+  launches: ``merkle_level`` reduces one level at full width, a thread per
+  parent; ``merkle_commit`` fuses several levels in one launch, a block at
+  a time, for the levels too small to fill the card.
+  ``ops/tip5_commit.py`` plans them from ``resident_threads``.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 twin. Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -23,8 +29,12 @@ from ..tip5.constants import DIGEST_LENGTH, NUM_ROUNDS, STATE_SIZE
 from ..tip5.permutation import (fixed_length_state, permutation_plain,
                                 trace_plain)
 
-#: Largest K2 block (threads); it bounds the levels one launch can fuse.
+#: Largest block of K2's fused launch; it bounds the levels one launch can
+#: fuse.
 MAX_THREADS = 256
+#: ``tf_tip5_occupancy``'s kernel numbers (csrc/tip5.cu)
+OCCUPANCY_KERNEL = {"tip5_permute": 0, "tip5_trace": 1, "merkle_level": 2,
+                    "merkle_commit": 3}
 
 
 def _check_tables(rc, lut, device):
@@ -51,6 +61,43 @@ def _require_cuda(x):
         raise ValueError(f"no kernel for device {x.device}")
 
 
+def _aligned(x):
+    """x itself where it starts on a 16-byte boundary, else an aligned copy:
+    the kernels read rows with 16-byte loads."""
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def occupancy(kernel: str, device=None, threads: int = MAX_THREADS):
+    """(threads per block, resident blocks per SM) of one Tip5 kernel on a
+    CUDA device, from the CUDA runtime; ``threads`` sets the fused launch's
+    block only."""
+    lib = _build.load()
+    block, blocks = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        _build.check(lib.tf_tip5_occupancy(OCCUPANCY_KERNEL[kernel], threads,
+                                           ctypes.byref(block),
+                                           ctypes.byref(blocks)),
+                     "tip5_occupancy")
+    return block.value, blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_threads(device: torch.device) -> int:
+    block, blocks = occupancy("merkle_level", device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * blocks * block
+
+
+def resident_threads(device) -> int:
+    """Threads of K2's level kernel that the card holds at once: its SMs
+    (the device's properties) times the kernel's resident blocks per SM
+    times its block size. 0 for a CPU device, where the plain twins run."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    return _resident_threads(device)
+
+
 # ---------------------------------------------------------------------------
 # K1: the permutation
 # ---------------------------------------------------------------------------
@@ -65,6 +112,7 @@ def tip5_permute(states, rc, lut):
     if states.device.type == "cpu":
         return tip5_permute_plain(states, rc, lut)
     _require_cuda(states)
+    states = _aligned(states)
     out = torch.empty_like(states)
     if states.shape[0] == 0:
         return out
@@ -91,6 +139,7 @@ def tip5_trace(states, rc, lut):
     if states.device.type == "cpu":
         return tip5_trace_plain(states, rc, lut)
     _require_cuda(states)
+    states = _aligned(states)
     out = torch.empty((states.shape[0], NUM_ROUNDS + 1, STATE_SIZE),
                       dtype=states.dtype, device=states.device)
     if states.shape[0] == 0:
@@ -109,7 +158,7 @@ tip5_trace.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K2: the multi-level Merkle commit
+# K2: the Merkle tree, one full-width level or several fused levels a launch
 # ---------------------------------------------------------------------------
 
 
@@ -117,6 +166,45 @@ def _pair_level(digests, rc, lut):
     """One Merkle level: (2b, 5) -> (b, 5), parent j = hash_pair(2j, 2j+1)."""
     states = fixed_length_state(digests.reshape(-1, 2 * DIGEST_LENGTH))
     return permutation_plain(states, rc, lut)[:, :DIGEST_LENGTH].contiguous()
+
+
+def merkle_level_plain(x, leaf: bool, rc, lut):
+    """Plain twin of ``merkle_level``."""
+    if leaf:
+        return permutation_plain(x, rc, lut)[:, :DIGEST_LENGTH].contiguous()
+    return _pair_level(x, rc, lut)
+
+
+def merkle_level(x, leaf: bool, rc, lut):
+    """One K2 level at full width, a thread per parent.
+
+    leaf mode: x is (rows, 16) leaf states -> (rows, 5) digests;
+    pair mode: x is (rows, 5) digests, rows even -> (rows / 2, 5).
+    """
+    _check_rows(x, STATE_SIZE if leaf else DIGEST_LENGTH,
+                "leaf states" if leaf else "digests")
+    if not leaf and x.shape[0] % 2:
+        raise ValueError(f"{x.shape[0]} digests do not pair up")
+    _check_tables(rc, lut, x.device)
+    if x.device.type == "cpu":
+        return merkle_level_plain(x, leaf, rc, lut)
+    _require_cuda(x)
+    x = _aligned(x)
+    parents = x.shape[0] if leaf else x.shape[0] // 2
+    out = torch.empty((parents, DIGEST_LENGTH), dtype=x.dtype, device=x.device)
+    if parents == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.tf_merkle_level(x.data_ptr(), out.data_ptr(), parents,
+                                  int(leaf), rc.data_ptr(), lut.data_ptr(),
+                                  _build.stream_of(x))
+        _build.check(err, "merkle_level")
+    merkle_level.launches += 1
+    return out
+
+
+merkle_level.launches = 0
 
 
 def merkle_commit_plain(x, leaf: bool, levels: int, threads: int, rc, lut):
@@ -130,7 +218,7 @@ def merkle_commit_plain(x, leaf: bool, levels: int, threads: int, rc, lut):
 
 
 def merkle_commit(x, leaf: bool, levels: int, threads: int, rc, lut):
-    """One K2 launch.
+    """One fused K2 launch.
 
     leaf mode: x is (rows, 16) leaf states; each block of ``threads`` rows
     hashes them and reduces ``levels`` levels: rows >> levels digests out.
@@ -150,6 +238,7 @@ def merkle_commit(x, leaf: bool, levels: int, threads: int, rc, lut):
     if x.device.type == "cpu":
         return merkle_commit_plain(x, leaf, levels, threads, rc, lut)
     _require_cuda(x)
+    x = _aligned(x)
     out = torch.empty((x.shape[0] >> levels, DIGEST_LENGTH), dtype=x.dtype,
                       device=x.device)
     if x.shape[0] == 0:

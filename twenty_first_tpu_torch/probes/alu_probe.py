@@ -59,9 +59,9 @@ def operands(shape, seed: int = 0, device="cuda"):
     return gf.from_u64(a).to(device), gf.from_u64(b).to(device)
 
 
-def loop_body(lines: list[str]) -> list[str]:
-    """The instructions of the longest backward-branch loop in one
-    kernel's SASS (K5's step loop, which is not unrolled)."""
+def loops(lines: list[str]) -> list[tuple[int, int, list[str]]]:
+    """Every backward-branch loop in one kernel's SASS: (first address,
+    branch address, the instructions from the one to the other)."""
     insns, labels = [], {}
     pending = []
     for line in lines:
@@ -76,17 +76,33 @@ def loop_body(lines: list[str]) -> list[str]:
                 labels[label] = addr
             pending = []
             insns.append((addr, m.group(2)))
-    best = []
+    found = []
     for addr, text in insns:
         m = _TARGET.search(text)
         if not m:
             continue
         target = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
         if target is not None and target < addr:
-            body = [t for a, t in insns if target <= a <= addr]
-            if len(body) > len(best):
-                best = body
-    return best
+            found.append((target, addr,
+                          [t for a, t in insns if target <= a <= addr]))
+    return found
+
+
+def loop_body(lines: list[str]) -> list[str]:
+    """The instructions of the longest backward-branch loop in one
+    kernel's SASS (K5's step loop, which is not unrolled)."""
+    return max((body for _, _, body in loops(lines)), key=len, default=[])
+
+
+def opcode_counts(body: list[str]) -> collections.Counter:
+    """Opcodes (predicates stripped) of SASS instructions, counted."""
+    return collections.Counter(t.split()[1] if t.startswith("@") else
+                               t.split()[0] for t in body)
+
+
+def imad_count(opcodes: collections.Counter) -> int:
+    """The IMAD-family instructions (multiply-adds on the FMA pipe)."""
+    return sum(n for opcode, n in opcodes.items() if opcode.startswith("IMAD"))
 
 
 def sass_per_op(op: str) -> dict:
@@ -97,14 +113,34 @@ def sass_per_op(op: str) -> dict:
         return {"instructions_per_op": "not measured (no cuobjdump)"}
     name = next(k for k in kernels if KERNEL_TAG[op] in k)
     body = loop_body(kernels[name])
-    opcodes = collections.Counter(t.split()[1] if t.startswith("@") else
-                                  t.split()[0] for t in body)
-    imads = sum(n for opcode, n in opcodes.items()
-                if opcode.startswith("IMAD"))
+    opcodes = opcode_counts(body)
     return {"kernel": name, "loop_instructions": len(body),
             "instructions_per_op": len(body) / 4,
-            "imad_per_op": imads / 4,
+            "imad_per_op": imad_count(opcodes) / 4,
             "loop_opcodes": dict(opcodes.most_common())}
+
+
+def sass_per_perm(kernels: dict[str, list[str]] | None, tag: str,
+                  rounds: int) -> dict:
+    """Instructions of one Tip5 permutation in the kernel whose mangled
+    name matches the regular expression ``tag``: its round loop (one round
+    per iteration: the innermost loop that issues the most IMAD-family
+    instructions) times ``rounds``, with the loop's opcode counts.
+    ``kernels`` is ``_build.sass()``'s map, None without cuobjdump."""
+    if kernels is None:
+        return {"sass_per_perm": "not measured (no cuobjdump)",
+                "imad_per_perm": "not measured (no cuobjdump)"}
+    name = next(k for k in kernels if re.search(tag, k))
+    found = loops(kernels[name])
+    inner = [body for lo, hi, body in found
+             if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                        for a, b, _ in found)]
+    body = max(inner, key=lambda b: (imad_count(opcode_counts(b)), -len(b)))
+    opcodes = opcode_counts(body)
+    return {"kernel": name, "round_instructions": len(body),
+            "sass_per_perm": len(body) * rounds,
+            "imad_per_perm": imad_count(opcodes) * rounds,
+            "round_opcodes": dict(opcodes.most_common())}
 
 
 def per_step_ms(a, b, op: str, plain: bool = False, reps: int = 10) -> dict:

@@ -17,6 +17,10 @@ MEMORY_BYTES_PER_S = 3.35e12
 #: arithmetic instructions); integer adds, compares and selects have lanes
 #: of their own beside these
 IMAD_LANES_PER_SM = 64
+#: FP64 lanes of one SM: double add, multiply or fused multiply-add results
+#: per clock on compute capability 9.0 (same table; NVIDIA's data sheet's
+#: 34 TFLOP/s of FP64 outside the tensor cores), a pipe beside the IMAD one
+FP64_LANES_PER_SM = 64
 #: an SM's four schedulers each issue one warp instruction (32 lanes) per
 #: clock, whatever its pipe: the ceiling of all instructions together
 DISPATCH_LANES_PER_SM = 4 * 32
