@@ -24,7 +24,12 @@ It prints one JSON line per phase. The last lines are the card's name and
 power limit (as nvidia-smi reports them), the per-kernel JSON line (for
 the Tip5 kernels with their SASS instructions per permutation, registers,
 resident warps and issue-bound time; K2's row is the whole 2^22-leaf
-tree, launch by launch), and the device line. Any failure raises: a non-zero exit and no device line.
+tree, launch by launch; K3's with its registers, spills, resident warps at
+the step's pass shape and SASS per butterfly), and the device line. K3's
+phase also holds in-place passes, inputs full of edge words and
+ntt(post=, out=) at the step's two sizes against the twins; the step's
+profile splits the glue (every kernel not of csrc/) by kernel name. Any
+failure raises: a non-zero exit and no device line.
 It needs a CUDA device and refuses to run without one.
 """
 
@@ -136,6 +141,11 @@ MDS_PRODUCTS = 41
 POW7_PRODUCTS_PER_PERM = 5 * 12 * 2 * (IMAD_PER_SQUARE + IMAD_PER_MUL)
 MDS_PRODUCTS_PER_PERM = 5 * 2 * MDS_PRODUCTS
 PRODUCTS_PER_PERM = POW7_PRODUCTS_PER_PERM + MDS_PRODUCTS_PER_PERM
+#: canonical edge words K3's checks mix into their inputs
+K3_EDGES = (0, 1, P - 1, 1 << 32, (1 << 32) - 1)
+#: the device kernels of csrc/ by name; every other kernel of a step is glue
+OWN_KERNELS = ("tip5_permute_kernel", "merkle_commit_kernel",
+               "ntt_local_pass_kernel")
 NO_LIBRARY = {"library_ms": None,
               "library": "no PyTorch call computes Goldilocks field "
                          "arithmetic, a Goldilocks NTT or Tip5"}
@@ -238,6 +248,17 @@ def random_field(rng, shape, device="cuda"):
     from twenty_first_tpu_torch.math import gf
 
     return gf.from_u64(rng.integers(0, P, size=shape, dtype=np.uint64)).to(device)
+
+
+def edge_field(rng, shape, device="cuda"):
+    """``random_field`` with every seventh word one of K3_EDGES in turn."""
+    from twenty_first_tpu_torch.math import gf
+
+    vals = rng.integers(0, P, size=shape, dtype=np.uint64)
+    flat = vals.reshape(-1)
+    flat[::7] = np.resize(np.array(K3_EDGES, dtype=np.uint64),
+                          flat[::7].shape)
+    return gf.from_u64(vals).to(device)
 
 
 def check_device() -> str:
@@ -388,13 +409,13 @@ def phase_k3(rng) -> dict:
     for log_t in range(1, 13):
         t = 1 << log_t
         tw = gf.from_u64(ntt.stage_twiddles(log_t, log_t % 2 == 1)).cuda()
-        diag = random_field(rng, (t, 37))
+        diag = edge_field(rng, (t, 37))
         n_inv = pow(t, P - 2, P)
         for layout in ("cols_fast", "elems_fast"):
             if layout == "cols_fast":
-                x = random_field(rng, (2, t, 37))
+                x = edge_field(rng, (2, t, 37))
             else:
-                x = random_field(rng, (2, 37, t)).transpose(1, 2)
+                x = edge_field(rng, (2, 37, t)).transpose(1, 2)
             for d, scale in ((None, 1), (diag, 1), (None, n_inv),
                              (diag, n_inv)):
                 require_equal(
@@ -403,6 +424,11 @@ def phase_k3(rng) -> dict:
                     ntt_cuda.ntt_local_pass(x, tw, diag=d, scale=scale),
                     ntt_cuda.ntt_local_pass_plain(x, tw, diag=d, scale=scale))
                 checked += 1
+            # in place: out is x's very view
+            want = ntt_cuda.ntt_local_pass_plain(x, tw, diag=diag, scale=n_inv)
+            ntt_cuda.ntt_local_pass(x, tw, diag=diag, scale=n_inv, out=x)
+            require_equal(f"K3 in place log_t={log_t} {layout}", x, want)
+            checked += 1
     for log_n in (10, 17, 22):
         n = 1 << log_n
         x = random_field(rng, (2, n))
@@ -413,6 +439,21 @@ def phase_k3(rng) -> dict:
         require_equal(f"intt 2^{log_n}", ntt.intt(y, tables=inv),
                       ntt.intt(y, tables=inv, plain=True))
         require_equal(f"intt(ntt(x)) 2^{log_n}", ntt.intt(y, tables=inv), x)
+    # ntt(post=, out=) at the main path's two sizes (the iNTT of n = N
+    # written into the head of zero planes of E * N, the NTT of N * E)
+    # against the transform followed by the product, on the plain twins
+    for n, inverse in ((N, True), (N * E, False)):
+        tabs = ntt.ntt_tables(n, inverse, "cuda")
+        x = random_field(rng, (W, n))
+        post = random_field(rng, (n,))
+        planes = torch.zeros((W, E * n), dtype=torch.int64, device="cuda")
+        ntt.ntt(x, inverse, tables=tabs, post=post, out=planes[:, :n])
+        want = gf.mul(ntt.ntt(x, inverse, tables=tabs, plain=True), post)
+        require_equal(f"ntt(post=, out=) 2^{n.bit_length() - 1} "
+                      f"inverse={inverse}", planes[:, :n], want)
+        if bool(planes[:, n:].any()):
+            raise AssertionError("ntt(out=) wrote past the head of its planes")
+        del planes, want
     golden = ntt.ntt(gf.from_u64([1, 4, 0, 0]).cuda())
     if gf.to_u64(golden).tolist() != [5, 1125899906842625,
                                       18446744069414584318,
@@ -480,11 +521,15 @@ def device_breakdown(fn) -> dict:
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     span_ms = start.elapsed_time(end)
+    # the glue: every device kernel that is not one of the port's own
+    glue = [e for e in kernels if not any(k in e.key for k in OWN_KERNELS)]
     return {"span_ms": span_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / span_ms if busy_ms else "not measured",
+            "glue_device_ms": sum(e.self_device_time_total for e in glue) / 1e3,
+            "glue_launches": sum(e.count for e in glue),
             "kernels": [{"name": e.key[:90], "calls": e.count,
                          "device_ms": e.self_device_time_total / 1e3}
-                        for e in kernels[:12]]}
+                        for e in kernels[:24]]}
 
 
 def phase_slice(counters) -> dict:
@@ -775,7 +820,8 @@ def main() -> None:
     smi = check_device()
     phase_build()
     from twenty_first_tpu_torch.ops import ntt_cuda, tip5_cuda
-    from twenty_first_tpu_torch.probes import tip5_probe
+    from twenty_first_tpu_torch.math import ntt
+    from twenty_first_tpu_torch.probes import pass_probe, tip5_probe
     from twenty_first_tpu_torch.tip5.permutation import tip5_tables
 
     rng = np.random.default_rng(0)
@@ -794,6 +840,12 @@ def main() -> None:
     rate = probe_alu["instructions_per_s"]
     stats = phase_tip5_counts(rate)
     k1.update(tip5_probe.counts(stats, "tip5_permute", N * E, rate))
+    log_n1, log_n2 = ntt.four_step_split((N * E).bit_length() - 1)
+    k3_stats = pass_probe.kernel_stats(log_n2, 1 << log_n1)
+    emit("k3_sass", **k3_stats)
+    k3.update({k: k3_stats.get(k, "not measured") for k in (
+        "elements_per_thread", "registers", "spill_bytes", "threads",
+        "resident_warps_per_sm", "sass_per_butterfly")})
     batch["trace"].update(tip5_probe.counts(stats, "tip5_trace", TRACE_STATES,
                                             rate))
     # the counts of the full-width level kernel, which does all but the

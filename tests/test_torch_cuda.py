@@ -152,6 +152,23 @@ def test_k3_pass_matches_plain(cuda):
         ntt_cuda.ntt_local_pass_plain(x, tw, diag=diag, scale=5))
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+def test_k3_four_step_post_out_matches_jax(cuda, inverse):
+    """The four-step transform scaling output k by post[k] in pass 2's
+    epilogue and writing into the head of wider planes."""
+    from twenty_first_tpu.math import gf_numpy as jgfn
+
+    n = 1 << 15
+    x, post = _rand((3, n)), _rand(n)
+    planes = torch.zeros((3, 4 * n), dtype=torch.int64, device=cuda)
+    ntt.ntt(gf.from_u64(x).to(cuda), inverse,
+            post=gf.from_u64(post).to(cuda), out=planes[:, :n])
+    want = jntt.intt_values(x) if inverse else jntt.ntt_values(x)
+    np.testing.assert_array_equal(gf.to_u64(planes[:, :n]),
+                                  jgfn.mul(want, post[None, :]))
+    assert not bool(planes[:, n:].any())
+
+
 def test_pipeline_root_matches_pinned_jax_root(cuda):
     trace = np.random.default_rng(0).integers(0, P, size=(8, 64),
                                               dtype=np.uint64)

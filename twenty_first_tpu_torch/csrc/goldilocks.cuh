@@ -75,4 +75,128 @@ __device__ __forceinline__ uint64_t add_lazy(uint64_t a, uint64_t b) {
   return s + k * EPSILON;
 }
 
+__device__ __forceinline__ uint32_t lo32(uint64_t x) {
+  return static_cast<uint32_t>(x);
+}
+__device__ __forceinline__ uint32_t hi32(uint64_t x) {
+  return static_cast<uint32_t>(x >> 32);
+}
+__device__ __forceinline__ uint64_t join(uint32_t lo, uint32_t hi) {
+  return (static_cast<uint64_t>(hi) << 32) | lo;
+}
+
+// The carry-chain forms below give the same representatives as the C forms
+// above (and as twenty_first_tpu/math/gf.py's lazy forms) with no compares
+// or selects: each EPSILON fix-up is the carry or borrow of a 32-bit chain
+// turned into a 0 / 2^32 - 1 mask. K1-K3 use them; K5 (probes.cu) times
+// the C forms, and its rates are the yardstick earlier measurements used.
+
+// a * b for any u64 residues, a lazy residue out: the 128-bit product
+// p = (p3, p2, p1, p0) as a carry chain of 32-bit multiply-adds, then
+// p mod p = (p1, p0) + p2 * (2^32 - 1) - p3 (2^64 = 2^32 - 1, 2^96 = -1),
+// each wrap of the 64-bit sum worth 2^32 - 1 through the carry: the value
+// of mul_lazy.
+__device__ __forceinline__ uint64_t mul_red(uint64_t a, uint64_t b) {
+  uint32_t r0, r1;
+  asm("{\n\t.reg .u32 p0, p1, p2, p3, m0, m1, c;\n\t"
+      "mul.lo.u32 p0, %2, %4;\n\t"
+      "mul.hi.u32 p1, %2, %4;\n\t"
+      "mad.lo.cc.u32 p1, %2, %5, p1;\n\t"
+      "madc.hi.u32 p2, %2, %5, 0;\n\t"
+      "mad.lo.cc.u32 p1, %3, %4, p1;\n\t"
+      "madc.hi.cc.u32 p2, %3, %4, p2;\n\t"
+      "madc.hi.u32 p3, %3, %5, 0;\n\t"
+      "mad.lo.cc.u32 p2, %3, %5, p2;\n\t"
+      "addc.u32 p3, p3, 0;\n\t"
+      "sub.cc.u32 %0, p0, p3;\n\t"  // (p1, p0) - p3
+      "subc.cc.u32 %1, p1, 0;\n\t"
+      "subc.u32 c, 0, 0;\n\t"  // 2^32 - 1 on a borrow, else 0
+      "sub.cc.u32 %0, %0, c;\n\t"
+      "subc.u32 %1, %1, 0;\n\t"
+      "sub.cc.u32 m0, 0, p2;\n\t"  // m = p2 * 2^32 - p2
+      "subc.u32 m1, p2, 0;\n\t"
+      "add.cc.u32 %0, %0, m0;\n\t"
+      "addc.cc.u32 %1, %1, m1;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "neg.s32 c, c;\n\t"  // 2^32 - 1 on a carry, else 0
+      "add.cc.u32 %0, %0, c;\n\t"
+      "addc.u32 %1, %1, 0;\n\t}"
+      : "=r"(r0), "=r"(r1)
+      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)));
+  return join(r0, r1);
+}
+
+// add_lazy: a wrap adds 2^32 - 1, and a second time when that wraps too
+// (exactly when the wrapped sum is >= p).
+__device__ __forceinline__ uint64_t add_lazy_cc(uint64_t a, uint64_t b) {
+  uint32_t r0, r1;
+  asm("{\n\t.reg .u32 c;\n\t"
+      "add.cc.u32 %0, %2, %4;\n\t"
+      "addc.cc.u32 %1, %3, %5;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "neg.s32 c, c;\n\t"
+      "add.cc.u32 %0, %0, c;\n\t"
+      "addc.cc.u32 %1, %1, 0;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "neg.s32 c, c;\n\t"
+      "add.cc.u32 %0, %0, c;\n\t"
+      "addc.u32 %1, %1, 0;\n\t}"
+      : "=r"(r0), "=r"(r1)
+      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)));
+  return join(r0, r1);
+}
+
+// Bit for bit gf.py's sub_lazy (:189): a borrow subtracts 2^32 - 1, and a
+// second time when that borrows too (exactly when a - b < 2^32 - 1).
+__device__ __forceinline__ uint64_t sub_lazy(uint64_t a, uint64_t b) {
+  uint32_t r0, r1;
+  asm("{\n\t.reg .u32 c;\n\t"
+      "sub.cc.u32 %0, %2, %4;\n\t"
+      "subc.cc.u32 %1, %3, %5;\n\t"
+      "subc.u32 c, 0, 0;\n\t"
+      "sub.cc.u32 %0, %0, c;\n\t"
+      "subc.cc.u32 %1, %1, 0;\n\t"
+      "subc.u32 c, 0, 0;\n\t"
+      "sub.cc.u32 %0, %0, c;\n\t"
+      "subc.u32 %1, %1, 0;\n\t}"
+      : "=r"(r0), "=r"(r1)
+      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)));
+  return join(r0, r1);
+}
+
+// reduce128_lazy's representative of lo + hi * 2^64 as one carry chain:
+// (lo - hh) + hl * (2^32 - 1), each borrow or wrap worth 2^32 - 1.
+__device__ __forceinline__ uint64_t reduce128_lazy_cc(uint64_t lo,
+                                                      uint64_t hi) {
+  uint32_t r0, r1;
+  asm("{\n\t.reg .u32 m0, m1, c;\n\t"
+      "sub.cc.u32 %0, %2, %5;\n\t"  // lo - hh
+      "subc.cc.u32 %1, %3, 0;\n\t"
+      "subc.u32 c, 0, 0;\n\t"
+      "sub.cc.u32 %0, %0, c;\n\t"
+      "subc.u32 %1, %1, 0;\n\t"
+      "sub.cc.u32 m0, 0, %4;\n\t"  // m = hl * 2^32 - hl
+      "subc.u32 m1, %4, 0;\n\t"
+      "add.cc.u32 %0, %0, m0;\n\t"
+      "addc.cc.u32 %1, %1, m1;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "neg.s32 c, c;\n\t"
+      "add.cc.u32 %0, %0, c;\n\t"
+      "addc.u32 %1, %1, 0;\n\t}"
+      : "=r"(r0), "=r"(r1)
+      : "r"(lo32(lo)), "r"(hi32(lo)), "r"(lo32(hi)), "r"(hi32(hi)));
+  return join(r0, r1);
+}
+
+// Bit for bit gf.py's mul_by_pow2_lazy (:198), x * 2^e for 0 < e < 96 as
+// the reduction of the shifted 128-bit word; above 2^128 (e > 64) the
+// third word is folded by 2^128 = -2^32. Meant for an e that is a constant
+// once the caller is unrolled: the branches then fold away.
+__device__ __forceinline__ uint64_t mul_pow2_lazy(uint64_t x, int e) {
+  if (e < 64) return reduce128_lazy_cc(x << e, x >> (64 - e));
+  const int r = e - 64;
+  if (r == 0) return reduce128_lazy_cc(0, x);
+  return sub_lazy(reduce128_lazy_cc(0, x << r), (x >> (64 - r)) << 32);
+}
+
 }  // namespace gl

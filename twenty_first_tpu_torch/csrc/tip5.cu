@@ -66,50 +66,11 @@ __device__ __forceinline__ double mds_col(int k) {
   return col[k & 15];
 }
 
-__device__ __forceinline__ uint32_t lo32(uint64_t x) {
-  return static_cast<uint32_t>(x);
-}
-__device__ __forceinline__ uint32_t hi32(uint64_t x) {
-  return static_cast<uint32_t>(x >> 32);
-}
-__device__ __forceinline__ uint64_t join(uint32_t lo, uint32_t hi) {
-  return (static_cast<uint64_t>(hi) << 32) | lo;
-}
-
-// a * b for any u64 residues, a lazy residue out: the 128-bit product
-// p = (p3, p2, p1, p0) as a carry chain of 32-bit multiply-adds, then
-// p mod p = (p1, p0) + p2 * (2^32 - 1) - p3 (2^64 = 2^32 - 1, 2^96 = -1),
-// each wrap of the 64-bit sum worth 2^32 - 1 through the carry: the value
-// of gl::reduce128_lazy, without compares or selects.
-__device__ __forceinline__ uint64_t mul_red(uint64_t a, uint64_t b) {
-  uint32_t r0, r1;
-  asm("{\n\t.reg .u32 p0, p1, p2, p3, m0, m1, c;\n\t"
-      "mul.lo.u32 p0, %2, %4;\n\t"
-      "mul.hi.u32 p1, %2, %4;\n\t"
-      "mad.lo.cc.u32 p1, %2, %5, p1;\n\t"
-      "madc.hi.u32 p2, %2, %5, 0;\n\t"
-      "mad.lo.cc.u32 p1, %3, %4, p1;\n\t"
-      "madc.hi.cc.u32 p2, %3, %4, p2;\n\t"
-      "madc.hi.u32 p3, %3, %5, 0;\n\t"
-      "mad.lo.cc.u32 p2, %3, %5, p2;\n\t"
-      "addc.u32 p3, p3, 0;\n\t"
-      "sub.cc.u32 %0, p0, p3;\n\t"  // (p1, p0) - p3
-      "subc.cc.u32 %1, p1, 0;\n\t"
-      "subc.u32 c, 0, 0;\n\t"  // 2^32 - 1 on a borrow, else 0
-      "sub.cc.u32 %0, %0, c;\n\t"
-      "subc.u32 %1, %1, 0;\n\t"
-      "sub.cc.u32 m0, 0, p2;\n\t"  // m = p2 * 2^32 - p2
-      "subc.u32 m1, p2, 0;\n\t"
-      "add.cc.u32 %0, %0, m0;\n\t"
-      "addc.cc.u32 %1, %1, m1;\n\t"
-      "addc.u32 c, 0, 0;\n\t"
-      "neg.s32 c, c;\n\t"  // 2^32 - 1 on a carry, else 0
-      "add.cc.u32 %0, %0, c;\n\t"
-      "addc.u32 %1, %1, 0;\n\t}"
-      : "=r"(r0), "=r"(r1)
-      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)));
-  return join(r0, r1);
-}
+// the 32-bit halves and the lazy product, shared with K3 (goldilocks.cuh)
+using gl::hi32;
+using gl::join;
+using gl::lo32;
+using gl::mul_red;
 
 __device__ __forceinline__ uint64_t pow7(uint64_t x) {
   const uint64_t x3 = mul_red(mul_red(x, x), x);

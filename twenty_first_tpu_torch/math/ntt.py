@@ -101,16 +101,27 @@ def ntt_tables(n: int, inverse: bool = False, device="cuda") -> NttTables:
 
 
 def ntt(x, inverse: bool = False, *, tables: NttTables | None = None,
-        plain: bool = False):
-    """NTT over the last axis of a (..., n) carrier tensor; a new tensor.
+        plain: bool = False, post=None, out=None):
+    """NTT over the last axis of a (..., n) carrier tensor.
 
     Through K3 for a CUDA tensor, its plain twin for a CPU tensor or when
     ``plain`` asks for it. ``tables`` (from ``ntt_tables``) saves building
-    them per call."""
+    them per call. ``post``, an (n,) carrier vector, multiplies output k in
+    natural order, in the last pass's epilogue. The result goes into
+    ``out``, a (..., n) view of x's shape that may be strided (say the head
+    of a larger tensor), or into a new tensor when ``out`` is None; either
+    is returned."""
     n = x.shape[-1]
     log_n = _log2(n)
+    if post is not None and post.shape != (n,):
+        raise ValueError(f"post must be an ({n},) vector, got "
+                         f"{tuple(post.shape)}")
+    if out is not None and out.shape != x.shape:
+        raise ValueError(f"out must have x's shape {tuple(x.shape)}, got "
+                         f"{tuple(out.shape)}")
     if n == 1:
-        return x.clone()
+        y = x if post is None else gf.mul(x, post)
+        return y.clone() if out is None else out.copy_(y)
     if tables is None:
         tables = ntt_tables(n, inverse, x.device)
     if tables.n != n or tables.inverse != inverse:
@@ -119,21 +130,31 @@ def ntt(x, inverse: bool = False, *, tables: NttTables | None = None,
                   else ntt_cuda.ntt_local_pass)
     scale = pow(n, P - 2, P) if inverse else 1
     rows = x.reshape(-1, n).contiguous()
+    res = torch.empty_like(rows) if out is None else out
     if tables.diag is None:
-        # one pass; the rows are its columns: views (1, n, rows)
-        out = torch.empty_like(rows)
-        local_pass(rows.t().unsqueeze(0), tables.tw1, scale=scale,
-                   out=out.t().unsqueeze(0))
-        return out.reshape(x.shape)
+        # one pass; the rows are its columns: views (1, n, rows), and post
+        # is the same diagonal for every column
+        diag = (None if post is None
+                else post.view(n, 1).expand(n, rows.shape[0]))
+        local_pass(rows.t().unsqueeze(0), tables.tw1, diag=diag, scale=scale,
+                   out=res.view(-1, n).t().unsqueeze(0))
+        return res.view(x.shape)
     log_n1, log_n2 = four_step_split(log_n)
-    y = local_pass(rows.view(-1, 1 << log_n2, 1 << log_n1), tables.tw1,
+    n1, n2 = 1 << log_n1, 1 << log_n2
+    y = local_pass(rows.view(-1, n2, n1), tables.tw1,
                    diag=tables.diag)  # Y[b, k2, j1]
-    z = local_pass(y.transpose(1, 2), tables.tw2, scale=scale)  # Z[b, k1, k2]
-    return z.reshape(x.shape)
+    # Z[b, k1, k2] is output k = k2 + n2 * k1, so post is pass 2's [k1, k2]
+    # diagonal
+    local_pass(y.transpose(1, 2), tables.tw2,
+               diag=None if post is None else post.view(n1, n2),
+               scale=scale, out=res.view(-1, n1, n2))
+    return res.view(x.shape)
 
 
-def intt(x, *, tables: NttTables | None = None, plain: bool = False):
-    return ntt(x, inverse=True, tables=tables, plain=plain)
+def intt(x, *, tables: NttTables | None = None, plain: bool = False,
+         post=None, out=None):
+    return ntt(x, inverse=True, tables=tables, plain=plain, post=post,
+               out=out)
 
 
 def ntt_values(values, inverse: bool = False, device="cuda") -> np.ndarray:

@@ -10,9 +10,16 @@ let the four-step passes run without a separate transpose
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 twin. The wrapper counts its launches in ``ntt_local_pass.launches``.
+
+The kernel runs the pass as rounds of up to four radix-2 stages in
+registers, the inner twiddles of each round as shifts by powers of two
+(``csrc/ntt.cu``), so ``tw`` must be ``math.ntt.stage_twiddles`` of the
+length and direction (the twin takes any stage table).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -22,8 +29,11 @@ from ..math import gf
 
 #: Longest transform one pass takes (its tile must fit shared memory).
 MAX_LOG_T = 12
-#: log2 of the tile the wrapper aims for, in elements (2^13 * 8 B = 64 KB).
+#: log2 of the tile the wrapper aims for, in elements (2^13 * 8 B = 64 KB),
+#: and of the fewest columns a tile takes; the kernel narrows a tile whose
+#: t / 16 threads a column would pass 1024 threads.
 _TILE_LOG2 = 13
+_MIN_LOG_TC = 2
 
 
 def bit_reverse_permutation(log_n: int) -> np.ndarray:
@@ -64,6 +74,24 @@ def _check(x, tw, diag, out):
             and out.untyped_storage().data_ptr()
             == x.untyped_storage().data_ptr()):
         raise ValueError("out may share x's storage only as x's very view")
+
+
+def column_tile_log2(log_t: int, ncols: int) -> int:
+    """log2 of the columns the wrapper asks a block to take (the kernel
+    narrows it to its thread limit)."""
+    return min(max(_MIN_LOG_TC, _TILE_LOG2 - log_t), (ncols - 1).bit_length())
+
+
+def occupancy(log_t: int, ncols: int, device=None) -> tuple[int, int]:
+    """(threads per block, resident blocks per SM) of K3's launch at
+    t = 2^log_t over ``ncols`` columns, from the CUDA runtime."""
+    lib = _build.load()
+    block, blocks = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        _build.check(lib.tf_ntt_occupancy(
+            log_t, column_tile_log2(log_t, ncols), ctypes.byref(block),
+            ctypes.byref(blocks)), "ntt_occupancy")
+    return block.value, blocks.value
 
 
 def ntt_local_pass_plain(x, tw, *, diag=None, scale: int = 1, out=None):
@@ -114,7 +142,7 @@ def ntt_local_pass(x, tw, *, diag=None, scale: int = 1, out=None):
     if x.numel() == 0:
         return out
     log_t = _log_t(x)
-    log_tc = min(max(2, _TILE_LOG2 - log_t), (ncols - 1).bit_length())
+    log_tc = column_tile_log2(log_t, ncols)
     diag_e, diag_c = diag.stride() if diag is not None else (0, 0)
     lib = _build.load()
     with torch.cuda.device(x.device):

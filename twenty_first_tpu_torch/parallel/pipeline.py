@@ -80,11 +80,13 @@ class TraceLdeCommit(nn.Module):
         if trace.device != self.offset_powers.device:
             raise ValueError(f"trace on {trace.device}, tables on "
                              f"{self.offset_powers.device}")
-        coeff = ntt_mod.ntt(trace, inverse=True, plain=plain,
-                            tables=self._ntt_tables("inv", self.n, True))
+        # the iNTT scales coefficient j by offset^j in its last pass's
+        # epilogue and writes straight into the head of the padded planes
         padded = torch.zeros((self.w, self.big_n), dtype=trace.dtype,
                              device=trace.device)
-        padded[:, :self.n] = gf.mul(coeff, self.offset_powers)
+        ntt_mod.ntt(trace, inverse=True, plain=plain,
+                    tables=self._ntt_tables("inv", self.n, True),
+                    post=self.offset_powers, out=padded[:, :self.n])
         evals = ntt_mod.ntt(padded, plain=plain,
                             tables=self._ntt_tables("fwd", self.big_n, False))
         return hash_rows_commit(

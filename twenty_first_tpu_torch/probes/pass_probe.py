@@ -20,18 +20,28 @@ whole output of the timed variant against the plain pass (the JAX script
 checks 256 columns, :166).
 
     python -m twenty_first_tpu_torch.probes.pass_probe [spec ...]
+
+``kernel_stats`` reads what K3 is on this build: registers and spills
+(``nvcc -Xptxas -v``), resident warps per SM at a launch's shape (the CUDA
+runtime), and SASS instructions per butterfly of a middle round, whose
+loop (at 16 elements a thread: 16 shared-memory loads, 15 twiddle
+products, the 32 butterflies of a 16-point DFT, 16 stores and a barrier)
+is the kernel's largest.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import sys
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..math import gf, ntt
 from ..ops import ntt_cuda, probe_cuda
+from . import alu_probe, tip5_probe
 from .timing import MEMORY_BYTES_PER_S, cuda_ms, require_card, wall_ms
 
 LOG_N = 24
@@ -123,6 +133,36 @@ def run(specs=DEFAULT_SPECS, reps: int = 10) -> list[dict]:
     if bad:
         raise AssertionError(f"pass probe: {bad} differ from the plain pass")
     return results
+
+
+#: K3's instantiations by the log2 of the elements a thread holds
+#: (csrc/ntt.cu); the widest runs every pass of 2^4 or more
+K3_TAG = re.compile(r"ntt_local_pass_kernelILi(\d)E")
+
+
+def kernel_stats(log_t: int, ncols: int) -> dict:
+    """K3's registers, spills and SASS per butterfly on this build (its
+    widest instantiation, R = 2^log_r elements a thread: a middle round is
+    R / 2 * log_r butterflies), and its resident warps per SM at
+    t = 2^log_t over ``ncols`` columns."""
+    report = tip5_probe.ptxas_report(_build.build_log())
+    log_r, name = max((int(m.group(1)), k) for k in report
+                      if (m := K3_TAG.search(k)))
+    block, blocks = ntt_cuda.occupancy(log_t, ncols)
+    stats = {"kernel": name, "elements_per_thread": 1 << log_r,
+             "registers": report[name].get("registers"),
+             "spill_bytes": report[name].get("spill_bytes", 0),
+             "threads": block, "resident_warps_per_sm": blocks * block // 32}
+    sass = _build.sass()
+    if sass is None:
+        stats["sass_per_butterfly"] = "not measured (no cuobjdump)"
+        return stats
+    body = max((b for _, _, b in alu_probe.loops(sass[name])), key=len)
+    stats.update(round_instructions=len(body),
+                 sass_per_butterfly=len(body) / ((1 << log_r) // 2 * log_r),
+                 round_opcodes=dict(alu_probe.opcode_counts(body)
+                                    .most_common(12)))
+    return stats
 
 
 def main(argv=None) -> None:
