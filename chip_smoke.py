@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 It builds the hand-written kernels from twenty_first_tpu_torch/csrc with
 nvcc, holds each against its plain PyTorch twin on the card (exact
 equality: this is integer field arithmetic), reproduces values pinned from
-the JAX reference, and drives four paths, each with every launch counter
+the JAX reference, and drives five paths, each with every launch counter
 set to 0 just before it and read just after:
 
 * the flagship step (W = 8 trace columns, n = 2^20, expansion 4: a
@@ -17,6 +17,12 @@ set to 0 just before it and read just after:
 * the standalone Tip5 batch path: permutation_batch at 2^16 and 2^22
   states, the T4/T5 entry points, trace, hash_varlen and
   hash_varlen_ragged (K1 and its trace mode);
+* the polynomial batch path (math/poly_batch.py, the NTT-domain
+  convolutions and gf_ext's batch inversion) at full width: the
+  out-of-domain extrapolations of bench.py's shape and of the flagship
+  trace's width and length, the barycentric evaluation, the coset LDE and
+  its inverse, batch products, convolutions at 2^22 and 2^20 (K3, K6, K7
+  and K8);
 * the NTT pass probe over 2^24 elements (K3 and K4);
 * the ALU probe, chains of lazy field ops (K5).
 
@@ -28,13 +34,16 @@ tree, launch by launch; K3's with its registers, spills, resident warps at
 the step's pass shape and SASS per butterfly), and the device line. K3's
 phase also holds in-place passes, inputs full of edge words and
 ntt(post=, out=) at the step's two sizes against the twins; the step's
-profile splits the glue (every kernel not of csrc/) by kernel name. Any
-failure raises: a non-zero exit and no device line.
+profile splits the glue (every kernel not of csrc/) by kernel name. The
+polynomial batch path's outputs equal its plain twins' on the card and
+PINNED_EXTRAPOLATE reproduces through the kernels. Any failure raises: a
+non-zero exit and no device line.
 It needs a CUDA device and refuses to run without one.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -107,6 +116,22 @@ PINNED_RAGGED = [
      4543393266712637337, 4346269982479654721],
 ]
 
+# JAX's batch_coset_extrapolate(_xfe) (use_jit=False) of
+# extrapolate_pin_inputs(), offset 7: the first three output words and the
+# sha256 of the whole (rows, m) or (rows, m, 3) uint64 output, little-endian
+# (tests/test_torch_poly_batch.py re-derives them)
+PINNED_EXTRAPOLATE = {
+    "base": ([7075090509476388138, 6128495499364521025,
+              17596945393161823063],
+             "1f9d2267d9d855ec795683f4099344528bea7ce943bcaece2a9f1204dc491853"),
+    "xfe_base": ([1988269808576906717, 10830131173574133256,
+                  4521848385401232373],
+                 "1ecf2e12e835c5dd97eee5b30068ca12d5ee622e45cb8a48b59dbcd99efa7108"),
+    "xfe_xfe": ([17098981790229392072, 352494565560432591,
+                 8371356374153446334],
+                "f39512bc7e41defb5c34e44976950a05ab02253aaaa266aac49a4bd3e3047fe7"),
+}
+
 # the main path's full width: W trace columns of length N, expansion E
 W, N, E = 8, 1 << 20, 4
 # the Tip5 batch path: permutation_batch at the reference's hash_parallel
@@ -145,7 +170,9 @@ PRODUCTS_PER_PERM = POW7_PRODUCTS_PER_PERM + MDS_PRODUCTS_PER_PERM
 K3_EDGES = (0, 1, P - 1, 1 << 32, (1 << 32) - 1)
 #: the device kernels of csrc/ by name; every other kernel of a step is glue
 OWN_KERNELS = ("tip5_permute_kernel", "merkle_commit_kernel",
-               "ntt_local_pass_kernel")
+               "ntt_local_pass_kernel", "coset_fold_kernel",
+               "fold_reduce_kernel", "inv_totals_kernel", "inv_scan_kernel",
+               "inv_sweep_kernel", "gf_pointwise_kernel")
 NO_LIBRARY = {"library_ms": None,
               "library": "no PyTorch call computes Goldilocks field "
                          "arithmetic, a Goldilocks NTT or Tip5"}
@@ -159,6 +186,27 @@ def varlen_input(length: int) -> np.ndarray:
 def ragged_inputs() -> list:
     rng = np.random.default_rng(3)
     return [rng.integers(0, P, size=n, dtype=np.uint64) for n in RAGGED_LENGTHS]
+
+
+def extrapolate_pin_inputs() -> dict:
+    """The inputs of PINNED_EXTRAPOLATE by name: (codewords, points), from
+    np.random.default_rng(0): (3, 2^10) base codewords at 64 base points;
+    (2, 2^10) base and (2, 2^10, 3) xfe codewords at 4 xfe points."""
+    rng = np.random.default_rng(0)
+    cw = rng.integers(0, P, size=(3, 1 << 10), dtype=np.uint64)
+    pts = rng.integers(0, P, size=64, dtype=np.uint64)
+    cwb = rng.integers(0, P, size=(2, 1 << 10), dtype=np.uint64)
+    cwx = rng.integers(0, P, size=(2, 1 << 10, 3), dtype=np.uint64)
+    xpts = rng.integers(0, P, size=(4, 3), dtype=np.uint64)
+    return {"base": (cw, pts), "xfe_base": (cwb, xpts),
+            "xfe_xfe": (cwx, xpts)}
+
+
+def pin_of(values) -> tuple:
+    """(first three words, sha256 of the little-endian uint64 array)."""
+    arr = np.ascontiguousarray(values, dtype="<u8")
+    return (arr.reshape(-1)[:3].tolist(),
+            hashlib.sha256(arr.tobytes()).hexdigest())
 
 
 def bound(nbytes: int, imads: int, either: int = 0) -> dict:
@@ -250,15 +298,20 @@ def random_field(rng, shape, device="cuda"):
     return gf.from_u64(rng.integers(0, P, size=shape, dtype=np.uint64)).to(device)
 
 
-def edge_field(rng, shape, device="cuda"):
-    """``random_field`` with every seventh word one of K3_EDGES in turn."""
-    from twenty_first_tpu_torch.math import gf
-
+def edge_words(rng, shape) -> np.ndarray:
+    """Random field words with every seventh one of K3_EDGES in turn."""
     vals = rng.integers(0, P, size=shape, dtype=np.uint64)
     flat = vals.reshape(-1)
     flat[::7] = np.resize(np.array(K3_EDGES, dtype=np.uint64),
                           flat[::7].shape)
-    return gf.from_u64(vals).to(device)
+    return vals
+
+
+def edge_field(rng, shape, device="cuda"):
+    """``edge_words`` as a carrier on ``device``."""
+    from twenty_first_tpu_torch.math import gf
+
+    return gf.from_u64(edge_words(rng, shape)).to(device)
 
 
 def check_device() -> str:
@@ -684,6 +737,7 @@ def phase_tip5_batch(rng, tables) -> dict:
     varlen_launches = tip5_cuda.tip5_permute.launches - before
     emit("tip5_batch", launches=launches, states=list(BATCH_STATES),
          t45_states=T45_STATES, trace_states=TRACE_STATES,
+         t45_bound=tip5_bound(2 * 128 * T45_STATES, T45_STATES),
          mixed_inputs=MIXED_INPUTS, ms=ms, host_ms=host_ms,
          hash_varlen_16384_launches=varlen_launches,
          perms_per_s={n: n / (ms[k] * 1e-3) for n, k in
@@ -695,6 +749,248 @@ def phase_tip5_batch(rng, tables) -> dict:
                       "plain_ms": trace_plain_ms,
                       **tip5_bound(8 * (16 + 96) * TRACE_STATES,
                                    TRACE_STATES)}}
+
+
+#: the polynomial batch path's widths: the flagship trace (W x N), bench.py's
+#: out-of-domain shape (one 2^18 codeword to 2^10 points), 16 xfe points,
+#: the convolutions' lengths
+POLY_BENCH_N, POLY_BENCH_POINTS = 1 << 18, 1 << 10
+POLY_XFE_POINTS = 16
+CONV_N, CONV_XFE_N = 1 << 22, 1 << 20
+# least 32x32 -> 64-bit products a known algorithm needs for one K6 term
+# (coefficient x point power): Horner's product with a base point; with an
+# xfe point and base coefficients, the division of the coefficients by the
+# point's cubic minimal polynomial (three a coefficient); with xfe
+# coefficients, Horner with Karatsuba's six-product xfe product
+FOLD_PRODUCTS = {(False, False): 1, (True, False): 3, (True, True): 6}
+# the fixed addition chain for x^(p-2): 63 squarings and 9 products
+INVERSE_SQUARES, INVERSE_PRODUCTS = 63, 9
+
+
+def fold_bound(rows: int, n: int, m: int, xpts: bool, xcoef: bool) -> dict:
+    comps = 3 if xpts else 1
+    nbytes = 8 * (rows * n * (3 if xcoef else 1) + m * comps
+                  + rows * m * comps)
+    return bound(nbytes, IMAD_PER_MUL * FOLD_PRODUCTS[xpts, xcoef]
+                 * rows * n * m)
+
+
+def kernel_row(fn, plain, reps: int = 10, plain_reps: int = 3) -> dict:
+    """A kernel call against its twin on the card: max_abs_err, device ms,
+    host-inclusive wall_ms, the twin's device ms."""
+    err = require_equal("kernel vs plain", fn(), plain())
+    return {"max_abs_err": err, "ms": cuda_ms(fn, reps),
+            "wall_ms": wall_ms(fn, reps), "plain_ms": cuda_ms(plain,
+                                                               plain_reps)}
+
+
+def phase_poly_batch(rng, counters) -> dict:
+    """The polynomial batch path at full width, once with the launch
+    counters at 0, against its plain twins; the pins; then K6-K8 alone at
+    the path's shapes, and the path's end-to-end times."""
+    from twenty_first_tpu_torch.math import gf, gf_ext, ntt, poly_batch
+    from twenty_first_tpu_torch.math import gf_numpy as gfn
+    from twenty_first_tpu_torch.ops import poly_cuda
+    from twenty_first_tpu_torch.probes import timing
+
+    codeword = edge_words(rng, (1, POLY_BENCH_N))
+    points = np.unique(rng.integers(1, P, size=2 * POLY_BENCH_POINTS,
+                                    dtype=np.uint64))[:POLY_BENCH_POINTS]
+    trace = edge_words(rng, (W, N))
+    trace_x = edge_words(rng, (2, N, 3))
+    xpts = edge_words(rng, (POLY_XFE_POINTS, 3))
+    z = int(rng.integers(1, P, dtype=np.uint64))
+    mul_a = edge_words(rng, (W, N // 2))
+    mul_b = edge_words(rng, (W, N // 2))
+    conv_a, conv_b = edge_words(rng, CONV_N), edge_words(rng, CONV_N)
+    conv_xa = edge_words(rng, (CONV_XFE_N, 3))
+    conv_xb = edge_words(rng, (CONV_XFE_N, 3))
+    table_values = edge_words(rng, CONV_N)
+    inv_x = edge_words(rng, (W, N, 3))
+    inv_x[inv_x == 0] = 1
+    inv_x[3, N // 2] = 0  # a zero element: row 3's determinants hold a 0
+    inv_dev = gf_ext.from_u64(inv_x).cuda()
+    table = ntt.conv_table_prepare(table_values)
+
+    def path(plain=False):
+        ev = poly_batch.batch_coset_evaluate(trace, N * E, plain=plain)
+        chunk = {"point_chunk": 4} if plain else {}
+        return {
+            "extrapolate": poly_batch.batch_coset_extrapolate(
+                codeword, 7, points, plain=plain),
+            "extrapolate_xfe": poly_batch.batch_coset_extrapolate_xfe(
+                trace, 7, xpts, plain=plain, **chunk),
+            "extrapolate_xfe_x": poly_batch.batch_coset_extrapolate_xfe(
+                trace_x, 7, xpts, plain=plain, **chunk),
+            "barycentric": poly_batch.batch_evaluate_barycentric(
+                trace, z, plain=plain),
+            "evaluate": ev,
+            "interpolate": poly_batch.batch_coset_interpolate(ev,
+                                                              plain=plain),
+            "multiply": poly_batch.batch_multiply(mul_a, mul_b, plain=plain),
+            **{f"conv_divide={d}": ntt.conv_values(conv_a, conv_b, divide=d,
+                                                   plain=plain)
+               for d in (False, True)},
+            **{f"conv_xfe_divide={d}": ntt.conv_values(
+                conv_xa, conv_xb, xfield=True, divide=d, plain=plain)
+               for d in (False, True)},
+            "conv_table": ntt.conv_table_values(conv_a, table, plain=plain),
+            "xfe_batch_inversion": gf_ext.to_u64(gf_ext.batch_inversion(
+                inv_dev, plain=plain)),
+        }
+
+    got, launches = run_path(counters, path)
+    require_launched("poly_batch", launches)
+    want = path(plain=True)
+    for name in got:
+        if not np.array_equal(got[name], want[name]) or \
+                got[name].shape != want[name].shape:
+            raise AssertionError(f"poly_batch {name}: kernels != plain twins")
+    if (not np.array_equal(got["interpolate"][:, :N], trace)
+            or got["interpolate"][:, N:].any()):
+        raise AssertionError("interpolate(evaluate(x)) is not x")
+    if got["xfe_batch_inversion"][3].any():
+        raise AssertionError("a row holding a 0 did not invert to zeros")
+    # the pins, through the kernels
+    for name, (cw, pts) in extrapolate_pin_inputs().items():
+        fn = (poly_batch.batch_coset_extrapolate if name == "base"
+              else poly_batch.batch_coset_extrapolate_xfe)
+        if pin_of(fn(cw, 7, pts)) != tuple(PINNED_EXTRAPOLATE[name]):
+            raise AssertionError(f"extrapolation misses the JAX pin {name}")
+
+    # K6 at forced segment lengths (one segment a lane up to one a row), K7
+    # at odd shapes (a part segment, more rows than a grid's y), K8's
+    # broadcasts, each against its twin
+    checked = 0
+    for rows, n, m, xp, xc in ((3, 1 << 10, 64, False, False),
+                               (2, 1 << 10, 5, True, False),
+                               (2, 1 << 8, 33, True, True)):
+        b = edge_field(rng, (rows, 3, n) if xc else (rows, n))
+        w = edge_field(rng, (m, 3) if xp else (m,))
+        want_fold = poly_cuda.coset_extrapolate_fold_plain(b, w)
+        for seg in (None, 0, 3, 10):
+            require_equal(f"K6 {(rows, n, m, xp, xc)} seg_log2={seg}",
+                          poly_cuda.coset_extrapolate_fold(b, w, seg_log2=seg),
+                          want_fold)
+            checked += 1
+    for rows, n in ((2, 1), (1, 2049), (70000, 3), (3, 5000)):
+        x = edge_field(rng, (rows, n))
+        x[x == 0] = 1
+        x[-1, n // 2] = 0
+        require_equal(f"K7 ({rows}, {n})", poly_cuda.batch_inversion(x),
+                      poly_cuda.batch_inversion_plain(x))
+        checked += 1
+    for op, sa, sb in (("mul", (3, 5, 100), (5, 100)), ("mul", (7, 1), (1,)),
+                       ("xmul", (2, 3, 100), (3, 100)),
+                       ("xmul_base", (4, 3, 77), (77,)),
+                       ("inv", (3, 100), None)):
+        a = edge_field(rng, sa)
+        b = None if sb is None else edge_field(rng, sb)
+        require_equal(f"K8 {op} {sa} x {sb}", poly_cuda.gf_pointwise(a, b, op),
+                      poly_cuda.gf_pointwise_plain(a, b, op))
+        checked += 1
+
+    # K6-K8 alone at the path's shapes, on device tensors
+    cw_dev = gf.from_u64(codeword).cuda()
+    bench_b = ntt.intt(cw_dev)
+    bench_w = gf.from_u64(gfn.mul(points, np.uint64(pow(7, P - 2, P)))).cuda()
+    k6 = {**kernel_row(lambda: poly_cuda.coset_extrapolate_fold(bench_b,
+                                                                bench_w),
+                       lambda: poly_cuda.coset_extrapolate_fold_plain(
+                           bench_b, bench_w)),
+          **fold_bound(1, POLY_BENCH_N, POLY_BENCH_POINTS, False, False),
+          "shape": [1, POLY_BENCH_N, POLY_BENCH_POINTS],
+          "plan": poly_cuda.fold_plan(1, POLY_BENCH_N, POLY_BENCH_POINTS)}
+    xw = gf.from_u64(xpts).cuda()
+    stark = {}
+    for label, x in (("base_coeffs", gf.from_u64(trace).cuda()),
+                     ("xfe_coeffs", gf_ext.from_u64(trace_x).cuda())):
+        b = ntt.intt(x)
+        xcoef = b.dim() == 3
+        stark[label] = {
+            **kernel_row(lambda: poly_cuda.coset_extrapolate_fold(b, xw),
+                         lambda: poly_cuda.coset_extrapolate_fold_plain(
+                             b, xw, point_chunk=4), reps=5, plain_reps=1),
+            **fold_bound(b.shape[0], N, POLY_XFE_POINTS, True, xcoef),
+            "shape": list(b.shape) + [POLY_XFE_POINTS]}
+    k6["stark_shapes"] = stark
+    dets = edge_field(rng, (W, N))
+    dets[dets == 0] = 1
+    dets[3, 7] = 0
+    k7 = {**kernel_row(lambda: poly_cuda.batch_inversion(dets[:1]),
+                       lambda: poly_cuda.batch_inversion_plain(dets[:1])),
+          **bound(16 * N, IMAD_PER_MUL * 3 * N), "shape": [1, N]}
+    k7["rows_8"] = {**kernel_row(lambda: poly_cuda.batch_inversion(dets),
+                                 lambda: poly_cuda.batch_inversion_plain(dets)),
+                    **bound(16 * W * N, IMAD_PER_MUL * 3 * W * N),
+                    "shape": [W, N]}
+    a8 = edge_field(rng, (W, N * E))
+    b8 = edge_field(rng, (W, N * E))
+    pw = poly_cuda.gf_pointwise
+    k8 = {**kernel_row(lambda: pw(a8, b8, "mul"),
+                       lambda: poly_cuda.gf_pointwise_plain(a8, b8, "mul")),
+          **bound(24 * W * N * E, IMAD_PER_MUL * W * N * E),
+          "op": "mul", "shape": [W, N * E]}
+    inv_in = a8[0]
+    k8["inv"] = {**kernel_row(lambda: pw(inv_in, None, "inv"),
+                              lambda: poly_cuda.gf_pointwise_plain(
+                                  inv_in, None, "inv"), plain_reps=1),
+                 **bound(16 * N * E, (IMAD_PER_SQUARE * INVERSE_SQUARES
+                                      + IMAD_PER_MUL * INVERSE_PRODUCTS)
+                         * N * E),
+                 "shape": [N * E]}
+    xa, xb = a8[:6].reshape(2, 3, -1), b8[:6].reshape(2, 3, -1)
+    k8["xmul"] = {**kernel_row(lambda: pw(xa, xb, "xmul"),
+                               lambda: poly_cuda.gf_pointwise_plain(
+                                   xa, xb, "xmul")),
+                  **bound(8 * 3 * xa.numel(),
+                          IMAD_PER_MUL * 6 * xa.numel() // 3),
+                  "shape": list(xa.shape)}
+    del a8, b8, xa, xb
+
+    # the path's end to end: bench.py's extrapolation and the 2^22
+    # convolution, numpy in and out (host median), their device cores
+    # (device ms) and the core's profile
+    def extrapolate():
+        return poly_batch.batch_coset_extrapolate(codeword, 7, points)
+
+    def extrapolate_core():
+        return poly_cuda.coset_extrapolate_fold(ntt.intt(cw_dev), bench_w)
+
+    ca, cb = gf.from_u64(conv_a).cuda(), gf.from_u64(conv_b).cuda()
+
+    def conv_core():
+        return ntt.intt(pw(ntt.ntt(ca), ntt.ntt(cb), "mul"))
+
+    ext_times = sorted(timing.wall_times(extrapolate, 11))
+    conv_times = sorted(timing.wall_times(
+        lambda: ntt.conv_values(conv_a, conv_b), 11))
+    ends = {"extrapolate_2^18_to_2^10": {
+                "host_ms": statistics.median(ext_times),
+                "host_ms_min": ext_times[0], "host_ms_max": ext_times[-1],
+                "device_ms": cuda_ms(extrapolate_core, 11),
+                "plain_host_ms": wall_ms(lambda: poly_batch
+                                         .batch_coset_extrapolate(
+                                             codeword, 7, points, plain=True),
+                                         3)},
+            "conv_2^22": {
+                "host_ms": statistics.median(conv_times),
+                "host_ms_min": conv_times[0], "host_ms_max": conv_times[-1],
+                "device_ms": cuda_ms(conv_core, 11),
+                "plain_host_ms": wall_ms(lambda: ntt.conv_values(
+                    conv_a, conv_b, plain=True), 3)}}
+    emit("poly_batch", launches=launches, outputs=sorted(got),
+         pinned=sorted(PINNED_EXTRAPOLATE), kernel_cases=checked,
+         end_to_end=ends,
+         k6_ms=k6["ms"], k7_ms=k7["ms"], k8_ms=k8["ms"],
+         profile_conv=device_breakdown(conv_core),
+         profile_extrapolate=device_breakdown(extrapolate_core))
+    for name, wrapper, row in (
+            ("k6_coset_extrapolate_fold", "coset_extrapolate_fold", k6),
+            ("k7_batch_inversion", "batch_inversion", k7),
+            ("k8_gf_pointwise", "gf_pointwise", k8)):
+        emit(name, launches_on_path=launches[wrapper], **row)
+    return {"launches": launches, "k6": k6, "k7": k7, "k8": k8}
 
 
 def phase_probe_pass(rng) -> dict:
@@ -835,6 +1131,11 @@ def main() -> None:
     launches = phase_slice(counters)
     phase_entry()
     batch = phase_tip5_batch(rng, tables)
+    from twenty_first_tpu_torch.ops import poly_cuda
+
+    poly = phase_poly_batch(rng, (
+        ntt_cuda.ntt_local_pass, poly_cuda.coset_extrapolate_fold,
+        poly_cuda.batch_inversion, poly_cuda.gf_pointwise))
     probe_pass = phase_probe_pass(rng)
     probe_alu = phase_probe_alu(rng)
     rate = probe_alu["instructions_per_s"]
@@ -881,9 +1182,11 @@ def main() -> None:
                      "scripts/prof_pallas_pass.py:53 (T6); "
                      "scripts/prof_pallas_pass.py:110 (T7)",
          "launches": launches["ntt_local_pass"]
+                     + poly["launches"]["ntt_local_pass"]
                      + probe_pass["launches"]["ntt_local_pass"],
          "launches_by_path": {
              "slice": launches["ntt_local_pass"],
+             "poly_batch": poly["launches"]["ntt_local_pass"],
              "probe_pass": probe_pass["launches"]["ntt_local_pass"]},
          "t7_launches_per_pass": probe_pass["k3_per_tile_launches"],
          **k3, **NO_LIBRARY},
@@ -897,6 +1200,28 @@ def main() -> None:
          "replaces": "scripts/pallas_alu_probe.py:38 (T8)",
          "launches": probe_alu["launches"]["gf_chain"],
          **probe_alu["k5"], **NO_LIBRARY},
+        {"name": "coset_extrapolate_fold", "route": "cuda",
+         "source": "twenty_first_tpu_torch/csrc/poly.cu",
+         "replaces": "twenty_first_tpu/math/poly_batch.py:152 "
+                     "(_coset_extrapolate_pow_core); :226 "
+                     "(_coset_extrapolate_xfe_pow_core); plain jnp, no "
+                     "Pallas kernel",
+         "launches": poly["launches"]["coset_extrapolate_fold"],
+         **poly["k6"], **NO_LIBRARY},
+        {"name": "batch_inversion", "route": "cuda",
+         "source": "twenty_first_tpu_torch/csrc/poly.cu",
+         "replaces": "twenty_first_tpu/math/gf.py:503 (batch_inversion); "
+                     "plain jnp, no Pallas kernel",
+         "launches": poly["launches"]["batch_inversion"],
+         **poly["k7"], **NO_LIBRARY},
+        {"name": "gf_pointwise", "route": "cuda",
+         "source": "twenty_first_tpu_torch/csrc/poly.cu",
+         "replaces": "twenty_first_tpu/math/gf_ext.py:71 (mul); :84 "
+                     "(mul_base); twenty_first_tpu/math/gf.py:444 "
+                     "(inverse_or_zero) and gf.mul; plain jnp, no Pallas "
+                     "kernel",
+         "launches": poly["launches"]["gf_pointwise"],
+         **poly["k8"], **NO_LIBRARY},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -232,3 +232,71 @@ def test_k5_matches_jax_probe(cuda, op):
     got = probe_cuda.gf_chain(gf.from_u64(a).to(cuda), gf.from_u64(b).to(cuda),
                               op, 7)
     np.testing.assert_array_equal(gf.to_u64(got), want)
+
+
+def test_k8_ops_match_jax(cuda):
+    """K8's four ops on the card against the JAX package's field layer."""
+    from twenty_first_tpu.math import gf_ext as jgfe
+    from twenty_first_tpu_torch.math import gf_ext
+    from twenty_first_tpu_torch.ops import poly_cuda
+
+    a, b = _rand((3, 500)), _rand((3, 500))
+    a[0, :5] = [0, 1, P - 1, 1 << 32, (1 << 32) - 1]
+    ta, tb = gf.from_u64(a).to(cuda), gf.from_u64(b).to(cuda)
+    before = poly_cuda.gf_pointwise.launches
+    np.testing.assert_array_equal(
+        gf.to_u64(poly_cuda.gf_pointwise(ta, tb, "mul")),
+        jgf.from_limbs(jgf.mul(jgf.to_limbs(a), jgf.to_limbs(b))))
+    np.testing.assert_array_equal(
+        gf.to_u64(gf.inverse_or_zero(ta)),
+        jgf.from_limbs(jgf.inverse_or_zero(jgf.to_limbs(a))))
+    xa, xb = _rand((2, 100, 3)), _rand((2, 100, 3))
+    txa, txb = (gf_ext.from_u64(v).to(cuda) for v in (xa, xb))
+    np.testing.assert_array_equal(
+        gf_ext.to_u64(gf_ext.mul(txa, txb)),
+        jgfe.from_limbs(jgfe.mul(jgfe.to_limbs(xa), jgfe.to_limbs(xb))))
+    base = _rand((2, 100))
+    np.testing.assert_array_equal(
+        gf_ext.to_u64(gf_ext.mul_base(txa, gf.from_u64(base).to(cuda))),
+        jgfe.from_limbs(jgfe.mul_base(jgfe.to_limbs(xa),
+                                      jgf.to_limbs(base))))
+    assert poly_cuda.gf_pointwise.launches == before + 4
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1 << 12), (3, 5000)])
+def test_k7_matches_jax(cuda, rows, n):
+    """A row holding a 0 comes out all zeros, as in JAX."""
+    from twenty_first_tpu_torch.ops import poly_cuda
+
+    x = _rand((rows, n))
+    x[x == 0] = 1
+    x[-1, n // 2] = 0
+    before = poly_cuda.batch_inversion.launches
+    got = gf.batch_inversion(gf.from_u64(x).to(cuda))
+    assert poly_cuda.batch_inversion.launches == before + 1
+    np.testing.assert_array_equal(
+        gf.to_u64(got), jgf.from_limbs(jgf.batch_inversion(jgf.to_limbs(x))))
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.PINNED_EXTRAPOLATE))
+def test_k6_extrapolation_matches_jax_pins(cuda, name):
+    """The extrapolations through K3 and K6 reproduce the JAX pins; the
+    barycentric evaluation (K7, K8) and a convolution (K3, K8) equal JAX."""
+    from twenty_first_tpu.math import poly_batch as jpb
+    from twenty_first_tpu_torch.math import poly_batch
+    from twenty_first_tpu_torch.ops import poly_cuda
+
+    cw, pts = chip_smoke.extrapolate_pin_inputs()[name]
+    before = poly_cuda.coset_extrapolate_fold.launches
+    fn = (poly_batch.batch_coset_extrapolate if name == "base"
+          else poly_batch.batch_coset_extrapolate_xfe)
+    got = fn(cw, 7, pts, device=cuda)
+    assert poly_cuda.coset_extrapolate_fold.launches == before + 1
+    assert chip_smoke.pin_of(got) == tuple(chip_smoke.PINNED_EXTRAPOLATE[name])
+    if name == "base":
+        np.testing.assert_array_equal(
+            poly_batch.batch_evaluate_barycentric(cw, 12345, device=cuda),
+            jpb.batch_evaluate_barycentric(cw, 12345))
+        np.testing.assert_array_equal(
+            ntt.conv_values(cw, cw[::-1].copy(), divide=True, device=cuda),
+            jntt.conv_values(cw, cw[::-1].copy(), divide=True))

@@ -63,6 +63,42 @@ def test_gf_numpy_helpers_equal_jax():
                                       jgfn.powers(base, n))
 
 
+# the words where the field ops' fix-ups turn
+GFN_EDGES = [0, 1, P - 1, 1 << 32, (1 << 32) - 1]
+
+
+def _gfn_operands(seed: int):
+    rng = np.random.default_rng(seed)
+    edge = np.array(GFN_EDGES, dtype=np.uint64)
+    a = np.concatenate([np.repeat(edge, len(edge)),
+                        rng.integers(0, P, size=500, dtype=np.uint64)])
+    b = np.concatenate([np.tile(edge, len(edge)),
+                        rng.integers(0, P, size=500, dtype=np.uint64)])
+    return a, b
+
+
+@pytest.mark.parametrize("name", ["add", "sub", "mul"])
+def test_gf_numpy_binary_copies_equal_jax(name):
+    """The copies of the JAX package's host forms, on random and edge
+    words (the JAX forms take their native route where it is built)."""
+    a, b = _gfn_operands(13)
+    got = getattr(tgfn, name)(a, b)
+    np.testing.assert_array_equal(got, getattr(jgfn, name)(a, b))
+    python = {"add": lambda x, y: (x + y) % P, "sub": lambda x, y: (x - y) % P,
+              "mul": lambda x, y: x * y % P}[name]
+    assert got.tolist() == [python(int(x), int(y)) for x, y in zip(a, b)]
+
+
+def test_gf_numpy_unary_copies_equal_jax():
+    a, _ = _gfn_operands(14)
+    np.testing.assert_array_equal(tgfn.neg(a), jgfn.neg(a))
+    inv = tgfn.inverse(a)
+    np.testing.assert_array_equal(inv, jgfn.inverse(a))
+    assert inv.tolist() == [pow(int(x), P - 2, P) for x in a]
+    for base, e in ((0, 0), (7, P - 2), (P - 1, 1 << 40), (1 << 32, 3)):
+        assert tgfn.pow_scalar(base, e) == jgfn.pow_scalar(base, e)
+
+
 def test_carrier_round_trips():
     rng = np.random.default_rng(2)
     v = rng.integers(0, 1 << 64, size=(3, 7), dtype=np.uint64,
@@ -211,6 +247,39 @@ def test_mul_by_pow2_lazy_rejects_bad_shift():
             gf.mul_by_pow2_lazy(gf.from_u64([1]), e)
 
 
+def test_inverse_or_zero_matches_jax():
+    """The chain for x^(p-2) (the plain twin of K8's inverse) against JAX's
+    CPU form; 0 -> 0."""
+    a, _ = _operands(15)
+    got = _port(lambda x: gf.inverse_or_zero(x, plain=True), a)
+    np.testing.assert_array_equal(got, _jax(jgf.inverse_or_zero, a))
+    np.testing.assert_array_equal(_port(gf.inverse_or_zero, a), got)
+    assert got.tolist() == [pow(int(x), P - 2, P) for x in a]
+
+
+@pytest.mark.parametrize("axis", [0, -1])
+def test_batch_inversion_matches_jax(axis):
+    """Along either axis; a lane holding a 0 comes out all zeros in both."""
+    rng = np.random.default_rng(16)
+    x = rng.integers(1, P, size=(6, 40), dtype=np.uint64)
+    x[0, :5] = GFN_EDGES[1:] + [1]
+    x[2, 9] = 0
+    want = _jax(lambda v: jgf.batch_inversion(v, axis=axis), x)
+    got = _port(lambda v: gf.batch_inversion(v, axis=axis), x)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        _port(lambda v: gf.batch_inversion(v, axis=axis, plain=True), x), want)
+    zero_lane = got[2] if axis == -1 else got[:, 9]
+    assert not zero_lane.any()
+
+
+def test_prefix_prod_matches_jax():
+    x, _ = _operands(17)
+    x = x[:300].reshape(3, 100)
+    np.testing.assert_array_equal(_port(gf._prefix_prod, x),
+                                  _jax(jgf._prefix_prod, x))
+
+
 def test_fixed_mul_golden():
     got = gf.mul(gf.from_u64([2779336007265862836]),
                  gf.from_u64([8146517303801474933]))
@@ -224,6 +293,12 @@ def test_port_never_imports_jax():
             "twenty_first_tpu_torch.parallel.pipeline",
             "twenty_first_tpu_torch.tip5.permutation",
             "twenty_first_tpu_torch.math.gf",
+            "twenty_first_tpu_torch.math.gf_ext",
+            "twenty_first_tpu_torch.math.xgf_numpy",
+            "twenty_first_tpu_torch.math.ntt",
+            "twenty_first_tpu_torch.math.poly_batch",
+            "twenty_first_tpu_torch.errors",
+            "twenty_first_tpu_torch.ops.poly_cuda",
             "twenty_first_tpu_torch.ops.tip5_commit",
             "twenty_first_tpu_torch.ops.ntt_cuda",
             "twenty_first_tpu_torch.ops.tip5_cuda",

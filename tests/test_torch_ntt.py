@@ -90,6 +90,48 @@ def test_ntt_rejects_bad_lengths_and_tables():
         ntt.ntt(x, tables=ntt.ntt_tables(128, device="cpu"))
 
 
+def test_length_zero_is_an_empty_copy_as_in_jax():
+    """A length-0 last axis: an empty copy through every entry point."""
+    z = np.zeros((3, 0), np.uint64)
+    for got, want in ((ntt.ntt_values(z, device="cpu"), jntt.ntt_values(z)),
+                      (ntt.intt_values(z, device="cpu"), jntt.intt_values(z)),
+                      (ntt.conv_values(z, z, device="cpu"),
+                       jntt.conv_values(z, z))):
+        assert got.shape == want.shape == (3, 0) and got.dtype == np.uint64
+    assert ntt.ntt(gf.from_u64(z)).shape == (3, 0)
+    assert ntt.ntt_tables(0, device="cpu").n == 0
+
+
+def test_bad_lengths_raise_ntt_domain_error():
+    assert issubclass(ntt.NttDomainError, ValueError)
+    assert ntt.NttDomainError.__name__ == jntt.NttDomainError.__name__
+    with pytest.raises(ntt.NttDomainError):
+        ntt.ntt_values(np.zeros((2, 3), np.uint64), device="cpu")
+    with pytest.raises(jntt.NttDomainError):
+        jntt.ntt_values(np.zeros((2, 3), np.uint64))
+    with pytest.raises(ntt.NttDomainError, match=r"limit of 2\^24"):
+        ntt.ntt_tables(1 << 25, device="cpu")
+    with pytest.raises(ntt.NttDomainError, match=r"2\^32"):
+        ntt.ntt_tables((1 << 33), device="cpu")
+
+
+def test_errors_copy_has_the_jax_classes():
+    """The port's errors.py: every class of the JAX package's, with its
+    name and the names of its bases."""
+    import inspect
+
+    from twenty_first_tpu import errors as jerr
+    from twenty_first_tpu_torch import errors as terr
+
+    def classes(mod):
+        return {name: tuple(b.__name__ for b in cls.__bases__)
+                for name, cls in inspect.getmembers(mod, inspect.isclass)
+                if cls.__module__ == mod.__name__}
+
+    assert classes(terr) == classes(jerr)
+    assert len(classes(terr)) == 13
+
+
 @pytest.mark.parametrize("layout", ["cols_fast", "elems_fast"])
 @pytest.mark.parametrize("log_t", [1, 4, 9])
 def test_local_pass_plain_matches_jax(layout, log_t):

@@ -1,4 +1,4 @@
-"""twenty_first_tpu_torch — the STARK LDE + Tip5 Merkle commit on PyTorch and CUDA.
+"""twenty_first_tpu_torch — the STARK primitives on PyTorch and CUDA.
 
 The PyTorch counterpart of ``twenty_first_tpu`` (the JAX reference, which
 stays beside it unchanged). Field elements travel as int64 tensors holding
@@ -7,15 +7,22 @@ is the contract at every seam between modules.
 
 Layout, each module named after its counterpart in the JAX package:
 
-* ``math/gf.py``: field arithmetic on the int64 carrier (plain torch);
-* ``math/ntt.py``: the natural-order NTT over the last axis (four-step);
+* ``math/gf.py``: field arithmetic on the int64 carrier (plain torch), and
+  the inverse and batch inversion (K8, K7 on the card);
+* ``math/gf_ext.py``: the extension field on (..., 3, n) carriers;
+* ``math/ntt.py``: the natural-order NTT over the last axis (four-step),
+  and the NTT-domain convolutions;
+* ``math/poly_batch.py``: batch-first polynomial ops (coset LDE, products,
+  barycentric evaluation, out-of-domain extrapolation);
+* ``errors.py``: the JAX package's error types;
 * ``tip5/permutation.py``: the Tip5 permutation, its trace, and the batch,
   hash and sponge entry points (fixed, variable and mixed lengths);
-* ``ops/tip5_cuda.py``, ``ops/ntt_cuda.py``, ``ops/probe_cuda.py``:
-  wrappers of the hand-written Hopper kernels in ``csrc/`` (Tip5
-  permutation and its trace mode, multi-level Merkle commit, NTT local
-  pass, and the probes' NTT stage and field-op chain), each beside its
-  plain PyTorch twin;
+* ``ops/tip5_cuda.py``, ``ops/ntt_cuda.py``, ``ops/probe_cuda.py``,
+  ``ops/poly_cuda.py``: wrappers of the hand-written Hopper kernels in
+  ``csrc/`` (Tip5 permutation and its trace mode, multi-level Merkle
+  commit, NTT local pass, the probes' NTT stage and field-op chain, the
+  extrapolation's coefficient fold, batch inversion and elementwise field
+  ops), each beside its plain PyTorch twin;
 * ``ops/tip5_batch.py``: the standalone Tip5 batch entry points of
   ``ops/tip5_pallas.py``, over the permutation kernel;
 * ``ops/tip5_commit.py``: the Merkle commit launch plan;

@@ -51,6 +51,14 @@ _SIGNATURES = {
     "tf_ntt_stage": (_VP, _VP, _I, _I, _LL, _LL, _LL, _LL, _LL, _VP, _I, _VP),
     # a, b, out, n, k, op, stream
     "tf_gf_chain": (_VP, _VP, _VP, _LL, _I, _I, _VP),
+    # a, b, out, rows, n, a_row, b_row, out_row, op, stream
+    "tf_gf_pointwise": (_VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _I, _VP),
+    # x, out, rows, n, totals, scratch, stream
+    "tf_batch_inversion": (_VP, _VP, _LL, _LL, _VP, _VP, _VP),
+    # b, w, partial, out, rows, n, m, log_p, log_l, nseg, groups, xpts,
+    # xcoef, stream
+    "tf_coset_fold": (_VP, _VP, _VP, _VP, _LL, _LL, _I, _I, _I, _LL, _I, _I,
+                      _I, _VP),
 }
 
 _lib = None
@@ -82,20 +90,46 @@ def _library_path() -> Path:
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns the .so.
 
-    The compiler's report (``-Xptxas -v``: registers, shared memory and
-    spills per kernel) is kept beside the library, see ``build_log``."""
+    One nvcc per source, all started together, then one link. The
+    compiler's report (``-Xptxas -v``: registers, shared memory and spills
+    per kernel) is kept beside the library, see ``build_log``."""
     so = _library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
+    stem = so.with_name(f"{so.stem}.{os.getpid()}")
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = Path(f"{stem}.{src.stem}.o")
+        log = obj.with_suffix(".log")
+        with open(log, "w") as sink:
+            proc = subprocess.Popen(
+                [_nvcc(), *compile_flags, "-c", "-I", str(CSRC), "-o",
+                 str(obj), str(src)], stdout=sink, stderr=subprocess.STDOUT)
+        jobs.append((src, obj, log, proc))
+    report, failed = [], []
+    for src, obj, log, proc in jobs:
+        proc.wait()
+        report.append(log.read_text())
+        log.unlink()
+        if proc.returncode != 0:
+            failed.append(f"{src.name}: nvcc exited {proc.returncode}")
+    tmp = Path(f"{stem}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [_nvcc(), "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+             *(str(obj) for _, obj, _, _ in jobs)],
+            capture_output=True, text=True, check=False)
+        report.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link: nvcc exited {link.returncode}")
+    for _, obj, _, _ in jobs:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(report))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "; ".join(failed) + "\n"
+                           + "".join(report))
     os.replace(tmp, so)
     return so
 

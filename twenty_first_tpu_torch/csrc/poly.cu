@@ -1,0 +1,546 @@
+// The device polynomial batch path's kernels (math/poly_batch.py,
+// math/gf_ext.py, the NTT-domain convolutions of math/ntt.py): K6
+// coset_fold, K7 batch inversion and K8 gf_pointwise.
+//
+// None of them replaces a Pallas kernel: each replaces plain-jnp work that
+// XLA fused on the TPU, and which the port's plain int64 torch would run as
+// dozens of launches per field product.
+//
+// K6 coset_fold_kernel + fold_reduce_kernel <- the coefficient fold of
+// twenty_first_tpu/math/poly_batch.py::_coset_extrapolate_pow_core (:152)
+// and ::_coset_extrapolate_xfe_pow_core (:226): out[r, j] = sum_k b[r, k]
+// w_j^k. JAX builds a (rows, points, n) table of terms; this never does.
+// What bounds it: the products, rows * n * m of them (one Horner step per
+// coefficient and point), against a few bytes. The design splits each row's
+// coefficients into segments of 2^log_l: a lane folds one segment for one
+// point by Horner (acc = acc * w + b[k], lazy residues in registers) and
+// scales the result by w^(s 2^log_l). A warp's lanes are 2^log_p points
+// of one or a few segments, so a coefficient load is one broadcast for
+// those points. A block adds its segments' partial sums in shared memory;
+// a second kernel adds the blocks'. The plan (ops/poly_cuda.py::fold_plan)
+// picks the longest segment that still gives about 2^18 lanes.
+//
+// K7 inv_totals_kernel, inv_scan_kernel, inv_sweep_kernel <-
+// twenty_first_tpu/math/gf.py::batch_inversion (:503), which JAX computes
+// as two log-depth Hillis-Steele prefix-product scans. What bounds it: the
+// bytes (each element read and its inverse written) against four products
+// an element. The design is Montgomery's trick on three levels, one field
+// inversion a row: the inverse of a group's product times the product of
+// the other members of its group is a member's inverse. Launch 1 takes the
+// product of each 2048-element segment (a block: 8 elements a thread, a
+// scan over the block); launch 2 turns each row's segment products into
+// their inverses (one inversion of the row's product, scans both ways);
+// launch 3 gives every thread the inverse of its elements' product (the
+// segment's inverse times the block's exclusive prefix and suffix) and
+// walks its elements backwards. A 0 anywhere in a row makes the row's
+// product 0 and its inverse 0, so the row comes out all zeros, as in JAX.
+//
+// K8 gf_pointwise_kernel <- the elementwise ops of the path:
+// twenty_first_tpu/math/gf.py::mul, gf_ext.py::mul (:71) and ::mul_base
+// (:84), gf.py::inverse_or_zero (:444). What bounds it: the bytes for the
+// products (24 a base element), the fixed addition chain's 63 squarings
+// and 9 products an element for the inverse. The design is one thread an
+// element (an xfe element: its three components) over a row, with a row
+// stride for each operand, 0 for a row read for every row. The xfe product
+// repeats the JAX package's order of canonical operations, so it gives
+// the plain twin's words for any inputs.
+#include <cuda_runtime.h>
+
+#include "goldilocks.cuh"
+
+namespace {
+
+constexpr int kPointwiseThreads = 256;
+constexpr int kFoldThreads = 256;
+constexpr int kInvThreads = 256;
+constexpr int kInvPerThread = 8;
+constexpr int kInvSegment = kInvThreads * kInvPerThread;
+constexpr int kMaxGrid = 65535;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Xfe {
+  uint64_t c0, c1, c2;
+};
+
+// The extension product of twenty_first_tpu/math/gf_ext.py::mul (:71-81),
+// canonical operations in its order.
+__device__ __forceinline__ Xfe xmul(const Xfe& s, const Xfe& o) {
+  using gl::add;
+  using gl::mul;
+  using gl::sub;
+  const uint64_t r0 = sub(mul(s.c0, o.c0), add(mul(s.c2, o.c1),
+                                               mul(s.c1, o.c2)));
+  uint64_t r1 = add(mul(s.c1, o.c0), mul(s.c0, o.c1));
+  r1 = add(r1, mul(s.c2, o.c1));
+  r1 = add(r1, mul(sub(s.c1, s.c2), o.c2));
+  uint64_t r2 = add(mul(s.c2, o.c0), mul(s.c1, o.c1));
+  r2 = add(r2, mul(add(s.c0, s.c2), o.c2));
+  return {r0, r1, r2};
+}
+
+// The same product on lazy residues (any u64 in, a u64 residue out).
+__device__ __forceinline__ Xfe xmul_lazy(const Xfe& s, const Xfe& o) {
+  using gl::add_lazy_cc;
+  using gl::mul_red;
+  using gl::sub_lazy;
+  const uint64_t s2o1 = mul_red(s.c2, o.c1);
+  const uint64_t r0 = sub_lazy(mul_red(s.c0, o.c0),
+                               add_lazy_cc(s2o1, mul_red(s.c1, o.c2)));
+  uint64_t r1 = add_lazy_cc(mul_red(s.c1, o.c0), mul_red(s.c0, o.c1));
+  r1 = add_lazy_cc(r1, s2o1);
+  r1 = add_lazy_cc(r1, mul_red(sub_lazy(s.c1, s.c2), o.c2));
+  uint64_t r2 = add_lazy_cc(mul_red(s.c2, o.c0), mul_red(s.c1, o.c1));
+  r2 = add_lazy_cc(r2, mul_red(add_lazy_cc(s.c0, s.c2), o.c2));
+  return {r0, r1, r2};
+}
+
+__device__ __forceinline__ uint64_t nsquare(uint64_t x, int n) {
+  for (int i = 0; i < n; ++i) x = gl::mul(x, x);
+  return x;
+}
+
+// x^(p - 2) by the fixed addition chain of gf.py::inverse_or_zero
+// (:467-477); 0 -> 0.
+__device__ uint64_t inverse_or_zero(uint64_t x) {
+  using gl::mul;
+  const uint64_t bin2 = mul(mul(x, x), x);
+  const uint64_t bin3 = mul(mul(bin2, bin2), x);
+  const uint64_t bin6 = mul(nsquare(bin3, 3), bin3);
+  const uint64_t bin12 = mul(nsquare(bin6, 6), bin6);
+  const uint64_t bin24 = mul(nsquare(bin12, 12), bin12);
+  const uint64_t bin30 = mul(nsquare(bin24, 6), bin6);
+  const uint64_t bin31 = mul(mul(bin30, bin30), x);
+  const uint64_t bin31_z = mul(bin31, bin31);
+  const uint64_t bin32 = mul(bin31_z, x);
+  return mul(nsquare(bin31_z, 32), bin32);
+}
+
+// ---------------------------------------------------------------------------
+// K8
+// ---------------------------------------------------------------------------
+
+// Element j of every row r: op(a[r * a_row + ...], b[r * b_row + ...]) into
+// out[r * out_row + ...]; an xfe row holds its components n apart.
+template <int kOp>
+__global__ void __launch_bounds__(kPointwiseThreads)
+    gf_pointwise_kernel(const uint64_t* __restrict__ a,
+                        const uint64_t* __restrict__ b,
+                        uint64_t* __restrict__ out, int64_t rows, int64_t n,
+                        int64_t a_row, int64_t b_row, int64_t out_row) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (j >= n) return;
+  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
+    const uint64_t* pa = a + r * a_row + j;
+    uint64_t* po = out + r * out_row + j;
+    if constexpr (kOp == 0) {
+      po[0] = gl::mul(pa[0], b[r * b_row + j]);
+    } else if constexpr (kOp == 1) {
+      const uint64_t* pb = b + r * b_row + j;
+      const Xfe v = xmul({pa[0], pa[n], pa[2 * n]}, {pb[0], pb[n], pb[2 * n]});
+      po[0] = v.c0;
+      po[n] = v.c1;
+      po[2 * n] = v.c2;
+    } else if constexpr (kOp == 2) {
+      const uint64_t v = b[r * b_row + j];
+      po[0] = gl::mul(pa[0], v);
+      po[n] = gl::mul(pa[n], v);
+      po[2 * n] = gl::mul(pa[2 * n], v);
+    } else {
+      po[0] = inverse_or_zero(pa[0]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K7
+// ---------------------------------------------------------------------------
+
+// The exclusive prefix and suffix products of each thread's t over the
+// block, and the block's product: warp shuffles both ways, then warp 0
+// over the warps' products. Every thread of the block calls it.
+template <int kThreads>
+__device__ __forceinline__ void block_scan(uint64_t t, uint64_t& pre_ex,
+                                           uint64_t& suf_ex,
+                                           uint64_t& total) {
+  static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps");
+  constexpr int kWarps = kThreads / 32;
+  __shared__ uint64_t warp_prod[kWarps], warp_pre[kWarps], warp_suf[kWarps];
+  __shared__ uint64_t block_prod;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint64_t pre = t, suf = t;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint64_t up = __shfl_up_sync(kFull, pre, d);
+    const uint64_t down = __shfl_down_sync(kFull, suf, d);
+    if (lane >= d) pre = gl::mul(pre, up);
+    if (lane + d < 32) suf = gl::mul(suf, down);
+  }
+  if (lane == 31) warp_prod[warp] = pre;
+  __syncthreads();
+  if (warp == 0) {
+    uint64_t p = lane < kWarps ? warp_prod[lane] : 1;
+    uint64_t s = p;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint64_t up = __shfl_up_sync(kFull, p, d);
+      const uint64_t down = __shfl_down_sync(kFull, s, d);
+      if (lane >= d) p = gl::mul(p, up);
+      if (lane + d < 32) s = gl::mul(s, down);
+    }
+    const uint64_t p_ex = __shfl_up_sync(kFull, p, 1);
+    const uint64_t s_ex = __shfl_down_sync(kFull, s, 1);
+    if (lane < kWarps) {
+      warp_pre[lane] = lane == 0 ? 1 : p_ex;
+      warp_suf[lane] = lane == 31 ? 1 : s_ex;
+    }
+    if (lane == 0) block_prod = s;
+  }
+  __syncthreads();
+  uint64_t p_ex = __shfl_up_sync(kFull, pre, 1);
+  uint64_t s_ex = __shfl_down_sync(kFull, suf, 1);
+  if (lane == 0) p_ex = 1;
+  if (lane == 31) s_ex = 1;
+  pre_ex = gl::mul(warp_pre[warp], p_ex);
+  suf_ex = gl::mul(warp_suf[warp], s_ex);
+  total = block_prod;
+  __syncthreads();  // the shared words are written again by the next call
+}
+
+// totals[r, s]: the product of segment s of row r (thread k takes
+// elements k, k + 256, ..., of the segment; a missing element is 1).
+__global__ void __launch_bounds__(kInvThreads)
+    inv_totals_kernel(const uint64_t* __restrict__ x,
+                      uint64_t* __restrict__ totals, int64_t rows, int64_t n,
+                      int64_t nseg) {
+  const int64_t seg = blockIdx.x;
+  const int64_t left = n - seg * kInvSegment;
+  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
+    const uint64_t* px = x + r * n + seg * kInvSegment;
+    uint64_t t = 1;
+#pragma unroll
+    for (int e = 0; e < kInvPerThread; ++e) {
+      const int64_t i = e * kInvThreads + threadIdx.x;
+      if (i < left) t = gl::mul(t, px[i]);
+    }
+    uint64_t pre_ex, suf_ex, total;
+    block_scan<kInvThreads>(t, pre_ex, suf_ex, total);
+    if (threadIdx.x == 0) totals[r * nseg + seg] = total;
+  }
+}
+
+// totals[r, :] -> their inverses, from one inversion of the row's product:
+// thread k takes a run of consecutive totals, keeps their running product
+// in scratch, and walks back from the inverse of its run's product.
+__global__ void __launch_bounds__(kInvThreads)
+    inv_scan_kernel(uint64_t* __restrict__ totals,
+                    uint64_t* __restrict__ scratch, int64_t rows,
+                    int64_t nseg) {
+  const int64_t run = (nseg + kInvThreads - 1) / kInvThreads;
+  const int64_t lo = threadIdx.x * run;
+  const int64_t hi = lo + run < nseg ? lo + run : nseg;
+  for (int64_t r = blockIdx.x; r < rows; r += gridDim.x) {
+    uint64_t* t = totals + r * nseg;
+    uint64_t* pre = scratch + r * nseg;
+    uint64_t acc = 1;
+    for (int64_t i = lo; i < hi; ++i) {
+      acc = gl::mul(acc, t[i]);
+      pre[i] = acc;
+    }
+    uint64_t pre_ex, suf_ex, total;
+    block_scan<kInvThreads>(acc, pre_ex, suf_ex, total);
+    uint64_t a = gl::mul(gl::mul(inverse_or_zero(total), pre_ex), suf_ex);
+    for (int64_t i = hi - 1; i >= lo; --i) {
+      const uint64_t before = i > lo ? pre[i - 1] : 1;
+      const uint64_t v = t[i];
+      t[i] = gl::mul(a, before);
+      a = gl::mul(a, v);
+    }
+  }
+}
+
+// out[r, segment s]: each element's inverse, from inv_totals[r, s].
+__global__ void __launch_bounds__(kInvThreads)
+    inv_sweep_kernel(const uint64_t* __restrict__ x,
+                     uint64_t* __restrict__ out,
+                     const uint64_t* __restrict__ inv_totals, int64_t rows,
+                     int64_t n, int64_t nseg) {
+  const int64_t seg = blockIdx.x;
+  const int64_t left = n - seg * kInvSegment;
+  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
+    const int64_t base = r * n + seg * kInvSegment;
+    uint64_t v[kInvPerThread], pre[kInvPerThread];
+    uint64_t acc = 1;
+#pragma unroll
+    for (int e = 0; e < kInvPerThread; ++e) {
+      const int64_t i = e * kInvThreads + threadIdx.x;
+      v[e] = i < left ? x[base + i] : 1;
+      acc = gl::mul(acc, v[e]);
+      pre[e] = acc;
+    }
+    uint64_t pre_ex, suf_ex, total;
+    block_scan<kInvThreads>(acc, pre_ex, suf_ex, total);
+    // the inverse of this thread's product, then back over its elements
+    uint64_t a = gl::mul(gl::mul(inv_totals[r * nseg + seg], pre_ex), suf_ex);
+#pragma unroll
+    for (int e = kInvPerThread - 1; e >= 0; --e) {
+      const int64_t i = e * kInvThreads + threadIdx.x;
+      if (i < left) out[base + i] = gl::mul(a, e > 0 ? pre[e - 1] : 1);
+      a = gl::mul(a, v[e]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6
+// ---------------------------------------------------------------------------
+
+template <bool kX>
+struct Acc;
+
+template <>
+struct Acc<false> {
+  uint64_t c0 = 0;
+  __device__ __forceinline__ void mul(const Acc& o) {
+    c0 = gl::mul_red(c0, o.c0);
+  }
+  __device__ __forceinline__ void canon() { c0 = gl::canon(c0); }
+  __device__ __forceinline__ uint64_t comp(int) const { return c0; }
+};
+
+template <>
+struct Acc<true> {
+  Xfe v{0, 0, 0};
+  __device__ __forceinline__ void mul(const Acc& o) { v = xmul_lazy(v, o.v); }
+  __device__ __forceinline__ void canon() {
+    v = {gl::canon(v.c0), gl::canon(v.c1), gl::canon(v.c2)};
+  }
+  __device__ __forceinline__ uint64_t comp(int c) const {
+    return c == 0 ? v.c0 : (c == 1 ? v.c1 : v.c2);
+  }
+};
+
+// base^e (lazy), e >= 0.
+template <bool kX>
+__device__ __forceinline__ Acc<kX> power(Acc<kX> base, int64_t e) {
+  Acc<kX> result;
+  if constexpr (kX) {
+    result.v = {1, 0, 0};
+  } else {
+    result.c0 = 1;
+  }
+  while (e) {
+    if (e & 1) result.mul(base);
+    e >>= 1;
+    if (e) base.mul(base);
+  }
+  return result;
+}
+
+// partial[r, blockIdx.y, p, c]: the sum over this block's segments s of
+// w_p^(s 2^log_l) * sum_{k in s} b[r, k] w_p^(k - s 2^log_l), component c.
+// Thread t takes point blockIdx.x * 2^log_p + (t mod 2^log_p) and segment
+// blockIdx.y * (256 / 2^log_p) + t / 2^log_p.
+template <bool kXPts, bool kXCoef>
+__global__ void __launch_bounds__(kFoldThreads)
+    coset_fold_kernel(const uint64_t* __restrict__ b,
+                      const uint64_t* __restrict__ w,
+                      uint64_t* __restrict__ partial, int64_t rows, int64_t n,
+                      int m, int log_p, int log_l, int64_t nseg, int groups) {
+  constexpr int kComps = kXPts ? 3 : 1;
+  __shared__ uint64_t red[kComps][kFoldThreads];
+  const int tid = threadIdx.x;
+  const int pts = 1 << log_p;
+  const int per_block = kFoldThreads >> log_p;
+  const int p = blockIdx.x * pts + (tid & (pts - 1));
+  const int64_t seg = static_cast<int64_t>(blockIdx.y) * per_block +
+                      (tid >> log_p);
+  const bool active = p < m && seg < nseg;
+  Acc<kXPts> wp;
+  if (active) {
+    if constexpr (kXPts) {
+      wp.v = {w[3 * p], w[3 * p + 1], w[3 * p + 2]};
+    } else {
+      wp.c0 = w[p];
+    }
+  }
+  const int64_t lo = seg << log_l;
+  const int64_t hi = lo + (int64_t{1} << log_l) < n ? lo + (int64_t{1} << log_l)
+                                                    : n;
+  for (int64_t r = blockIdx.z; r < rows; r += gridDim.z) {
+    Acc<kXPts> acc;
+    if (active) {
+      for (int64_t k = hi - 1; k >= lo; --k) {
+        acc.mul(wp);
+        if constexpr (kXCoef) {
+          const uint64_t* pb = b + r * 3 * n + k;
+          acc.v.c0 = gl::add_lazy_cc(acc.v.c0, pb[0]);
+          acc.v.c1 = gl::add_lazy_cc(acc.v.c1, pb[n]);
+          acc.v.c2 = gl::add_lazy_cc(acc.v.c2, pb[2 * n]);
+        } else if constexpr (kXPts) {
+          acc.v.c0 = gl::add_lazy_cc(acc.v.c0, b[r * n + k]);
+        } else {
+          acc.c0 = gl::add_lazy_cc(acc.c0, b[r * n + k]);
+        }
+      }
+      Acc<kXPts> step = wp;  // w^(2^log_l), then w^(seg 2^log_l)
+      for (int i = 0; i < log_l; ++i) step.mul(step);
+      acc.mul(power(step, seg));
+      acc.canon();
+    }
+#pragma unroll
+    for (int c = 0; c < kComps; ++c) red[c][tid] = acc.comp(c);
+    __syncthreads();
+    if (tid < pts && p < m) {
+#pragma unroll
+      for (int c = 0; c < kComps; ++c) {
+        uint64_t s = 0;
+        for (int q = 0; q < per_block; ++q) s = gl::add(s, red[c][q * pts + tid]);
+        partial[((r * groups + blockIdx.y) * m + p) * kComps + c] = s;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// out[r, p, c] = sum over the groups of partial[r, g, p, c].
+__global__ void __launch_bounds__(kFoldThreads)
+    fold_reduce_kernel(const uint64_t* __restrict__ partial,
+                       uint64_t* __restrict__ out, int64_t rows, int64_t width,
+                       int groups) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= rows * width) return;
+  const int64_t r = i / width;
+  const int64_t pc = i - r * width;
+  uint64_t s = 0;
+  for (int g = 0; g < groups; ++g) {
+    s = gl::add(s, partial[(r * groups + g) * width + pc]);
+  }
+  out[i] = s;
+}
+
+template <bool kXPts, bool kXCoef>
+cudaError_t launch_fold(const uint64_t* b, const uint64_t* w,
+                        uint64_t* partial, uint64_t* out, int64_t rows,
+                        int64_t n, int m, int log_p, int log_l, int64_t nseg,
+                        int groups, cudaStream_t s) {
+  const unsigned tiles = static_cast<unsigned>((m + (1 << log_p) - 1) >>
+                                               log_p);
+  const dim3 grid(tiles, static_cast<unsigned>(groups),
+                  static_cast<unsigned>(rows < kMaxGrid ? rows : kMaxGrid));
+  coset_fold_kernel<kXPts, kXCoef><<<grid, kFoldThreads, 0, s>>>(
+      b, w, partial, rows, n, m, log_p, log_l, nseg, groups);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t width = static_cast<int64_t>(m) * (kXPts ? 3 : 1);
+  const int64_t total = rows * width;
+  fold_reduce_kernel<<<static_cast<unsigned>((total + kFoldThreads - 1) /
+                                             kFoldThreads),
+                       kFoldThreads, 0, s>>>(partial, out, rows, width,
+                                             groups);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// a, b, out: rows of n elements (xfe rows: 3 components n apart) at row
+// strides a_row, b_row (0: one row read for every row) and out_row.
+// op: 0 base x base, 1 xfe x xfe, 2 xfe x base, 3 inverse of a (b unused).
+extern "C" int tf_gf_pointwise(const void* a, const void* b, void* out,
+                               long long rows, long long n, long long a_row,
+                               long long b_row, long long out_row, int op,
+                               void* stream) {
+  if (op < 0 || op > 3 || rows < 0 || n < 0 || (op != 3 && b == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rows > 0 && n > 0) {
+    const dim3 grid(static_cast<unsigned>((n + kPointwiseThreads - 1) /
+                                          kPointwiseThreads),
+                    static_cast<unsigned>(rows < kMaxGrid ? rows : kMaxGrid));
+    const auto* pa = static_cast<const uint64_t*>(a);
+    const auto* pb = static_cast<const uint64_t*>(b);
+    auto* po = static_cast<uint64_t*>(out);
+    const auto s = static_cast<cudaStream_t>(stream);
+    switch (op) {
+      case 0:
+        gf_pointwise_kernel<0><<<grid, kPointwiseThreads, 0, s>>>(
+            pa, pb, po, rows, n, a_row, b_row, out_row);
+        break;
+      case 1:
+        gf_pointwise_kernel<1><<<grid, kPointwiseThreads, 0, s>>>(
+            pa, pb, po, rows, n, a_row, b_row, out_row);
+        break;
+      case 2:
+        gf_pointwise_kernel<2><<<grid, kPointwiseThreads, 0, s>>>(
+            pa, pb, po, rows, n, a_row, b_row, out_row);
+        break;
+      default:
+        gf_pointwise_kernel<3><<<grid, kPointwiseThreads, 0, s>>>(
+            pa, pb, po, rows, n, a_row, b_row, out_row);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, out: (rows, n) contiguous; totals, scratch: (rows, nseg) with nseg =
+// ceil(n / 2048). out gets every element's inverse (a row with a 0: zeros).
+extern "C" int tf_batch_inversion(const void* x, void* out, long long rows,
+                                  long long n, void* totals, void* scratch,
+                                  void* stream) {
+  if (rows < 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0 || n == 0) return static_cast<int>(cudaGetLastError());
+  const long long nseg = (n + kInvSegment - 1) / kInvSegment;
+  if (nseg > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const unsigned ry = static_cast<unsigned>(rows < kMaxGrid ? rows : kMaxGrid);
+  const dim3 grid(static_cast<unsigned>(nseg), ry);
+  const auto* px = static_cast<const uint64_t*>(x);
+  auto* pt = static_cast<uint64_t*>(totals);
+  inv_totals_kernel<<<grid, kInvThreads, 0, s>>>(px, pt, rows, n, nseg);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  inv_scan_kernel<<<ry, kInvThreads, 0, s>>>(
+      pt, static_cast<uint64_t*>(scratch), rows, nseg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  inv_sweep_kernel<<<grid, kInvThreads, 0, s>>>(
+      px, static_cast<uint64_t*>(out), pt, rows, n, nseg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// b: (rows, n) base or (rows, 3, n) xfe coefficients; w: (m,) base or
+// (m, 3) xfe points; partial: (rows, groups, m, comps) scratch; out:
+// (rows, m, comps). The plan (log_p, log_l, nseg, groups) is
+// ops/poly_cuda.py::fold_plan's.
+extern "C" int tf_coset_fold(const void* b, const void* w, void* partial,
+                             void* out, long long rows, long long n, int m,
+                             int log_p, int log_l, long long nseg, int groups,
+                             int xpts, int xcoef, void* stream) {
+  const long long per_block = kFoldThreads >> (log_p < 0 ? 0 : log_p);
+  if (rows < 0 || n < 1 || m < 1 || log_p < 0 || log_p > 5 || log_l < 0 ||
+      log_l > 40 || nseg < 1 || (nseg << log_l) < n ||
+      ((nseg - 1) << log_l) >= n || groups < 1 || groups > kMaxGrid ||
+      groups * per_block < nseg || (xcoef && !xpts)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rows == 0) return static_cast<int>(cudaGetLastError());
+  const auto* pb = static_cast<const uint64_t*>(b);
+  const auto* pw = static_cast<const uint64_t*>(w);
+  auto* pp = static_cast<uint64_t*>(partial);
+  auto* po = static_cast<uint64_t*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (!xpts) {
+    err = launch_fold<false, false>(pb, pw, pp, po, rows, n, m, log_p, log_l,
+                                    nseg, groups, s);
+  } else if (!xcoef) {
+    err = launch_fold<true, false>(pb, pw, pp, po, rows, n, m, log_p, log_l,
+                                   nseg, groups, s);
+  } else {
+    err = launch_fold<true, true>(pb, pw, pp, po, rows, n, m, log_p, log_l,
+                                  nseg, groups, s);
+  }
+  return static_cast<int>(err);
+}

@@ -12,7 +12,11 @@ so this module
 * forms 64x64 -> 128-bit products from 32-bit halves (``mul_wide``).
 
 Every function is plain torch on any device: it is the plain twin that the
-CUDA kernels (``csrc/goldilocks.cuh``) are held against.
+CUDA kernels (``csrc/goldilocks.cuh``) are held against. The two
+exceptions are ``inverse_or_zero`` and ``batch_inversion``, which go
+through the wrappers of K8 and K7 (``ops/poly_cuda.py``: the kernel on a
+CUDA tensor, the twin on a CPU one) unless ``plain`` asks for their twins
+here.
 """
 
 from __future__ import annotations
@@ -240,6 +244,69 @@ def pow_const(a, e: int):
         if e:
             base = square(base)
     return result
+
+
+def _nsquare(x, n: int):
+    for _ in range(n):
+        x = square(x)
+    return x
+
+
+def inverse_or_zero(a, *, plain: bool = False):
+    """Elementwise inverse by the fixed addition chain for x^(p-2) (the JAX
+    package's ``gf.inverse_or_zero``, :444); 0 -> 0. Through K8's wrapper
+    unless ``plain`` asks for the chain here, its twin."""
+    if not plain:
+        from ..ops import poly_cuda
+
+        return poly_cuda.gf_pointwise(a, None, "inv")
+    x = a
+    bin2 = mul(square(x), x)  # x^(2^2 - 1)
+    bin3 = mul(square(bin2), x)  # x^(2^3 - 1)
+    bin6 = mul(_nsquare(bin3, 3), bin3)
+    bin12 = mul(_nsquare(bin6, 6), bin6)
+    bin24 = mul(_nsquare(bin12, 12), bin12)
+    bin30 = mul(_nsquare(bin24, 6), bin6)
+    bin31 = mul(square(bin30), x)
+    bin31_z = square(bin31)
+    bin32 = mul(square(bin31), x)
+    return mul(_nsquare(bin31_z, 32), bin32)
+
+
+def batch_inversion(x, axis: int = -1, *, plain: bool = False):
+    """Montgomery batch inversion along ``axis`` (the JAX package's
+    ``gf.batch_inversion``, :503): one inverse per lane of the other axes.
+    A lane holding a 0 comes out all zeros (its product's inverse is 0).
+    Through K7's wrapper unless ``plain`` asks for its twin here, JAX's
+    prefix-product form (Hillis-Steele scans both ways)."""
+    lanes = torch.movedim(x, axis, -1)
+    if not plain:
+        from ..ops import poly_cuda
+
+        rows = lanes.reshape(-1, lanes.shape[-1])
+        res = poly_cuda.batch_inversion(rows).view(lanes.shape)
+        return torch.movedim(res, -1, axis)
+    pre = _prefix_prod(lanes)
+    inv_total = inverse_or_zero(pre[..., -1:], plain=True)
+    suf = torch.flip(_prefix_prod(torch.flip(lanes, (-1,))), (-1,))
+    one = torch.ones_like(lanes[..., :1])
+    pre_excl = torch.cat([one, pre[..., :-1]], -1)
+    suf_excl = torch.cat([suf[..., 1:], one], -1)
+    res = mul(mul(pre_excl, suf_excl), inv_total)
+    return torch.movedim(res, -1, axis)
+
+
+def _prefix_prod(x):
+    """Inclusive prefix product along the last axis (Hillis-Steele,
+    log-depth), as the JAX package's ``gf._prefix_prod`` (:544)."""
+    n = x.shape[-1]
+    shift = 1
+    while shift < n:
+        shifted = torch.cat([torch.ones_like(x[..., :shift]),
+                             x[..., :-shift]], -1)
+        x = mul(x, shifted)
+        shift *= 2
+    return x
 
 
 def to_montgomery(a):

@@ -1,8 +1,9 @@
-"""Goldilocks arithmetic on host numpy uint64 arrays, for building tables.
+"""Goldilocks arithmetic on host numpy uint64 arrays, for tables and oracles.
 
-The numpy forms of ``twenty_first_tpu/math/gf_numpy.py``'s ``mul`` and
-``powers`` (without its native fast path): numpy has native 64-bit
-integers, so the 128-bit products are formed from 32-bit halves.
+The numpy forms of ``twenty_first_tpu/math/gf_numpy.py`` (without its
+native fast path): numpy has native 64-bit integers, so the 128-bit
+products are formed from 32-bit halves. ``tests/test_torch_gf.py`` holds
+every function against the JAX package's.
 """
 
 from __future__ import annotations
@@ -48,6 +49,53 @@ def mul(a, b):
         c = (lo < ll).astype(np.uint64)
         hi = hh + (mid >> _S32) + (midc << _S32) + c
     return reduce128(lo, hi)
+
+
+def add(a, b):
+    a = np.asarray(a, dtype=np.uint64)
+    b = np.asarray(b, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        s = a + b
+        s = np.where(s < a, s + EPSILON, s)
+    return np.where(s >= P, s - P, s)
+
+
+def sub(a, b):
+    a = np.asarray(a, dtype=np.uint64)
+    b = np.asarray(b, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        d = a - b
+        return np.where(a < b, d - EPSILON, d)
+
+
+def neg(a):
+    return sub(np.uint64(0), a)
+
+
+def pow_scalar(base: int, e: int) -> int:
+    return pow(int(base), int(e), int(P))
+
+
+def inverse(a):
+    """Elementwise inverse-or-zero via the fixed Goldilocks addition chain
+    for x^(p-2) (b_field_element.rs:252-284). 0 -> 0."""
+    x = np.asarray(a, dtype=np.uint64)
+
+    def nsquare(v, n):
+        for _ in range(n):
+            v = mul(v, v)
+        return v
+
+    bin2 = mul(mul(x, x), x)
+    bin3 = mul(mul(bin2, bin2), x)
+    bin6 = mul(nsquare(bin3, 3), bin3)
+    bin12 = mul(nsquare(bin6, 6), bin6)
+    bin24 = mul(nsquare(bin12, 12), bin12)
+    bin30 = mul(nsquare(bin24, 6), bin6)
+    bin31 = mul(mul(bin30, bin30), x)
+    bin31_z = mul(bin31, bin31)
+    bin32 = mul(mul(bin31, bin31), x)
+    return mul(nsquare(bin31_z, 32), bin32)
 
 
 def powers(base: int, n: int) -> np.ndarray:
