@@ -765,6 +765,12 @@ CONV_N, CONV_XFE_N = 1 << 22, 1 << 20
 FOLD_PRODUCTS = {(False, False): 1, (True, False): 3, (True, True): 6}
 # the fixed addition chain for x^(p-2): 63 squarings and 9 products
 INVERSE_SQUARES, INVERSE_PRODUCTS = 63, 9
+# device ms of K6 (one reduction a term) and K8's inverse (the chain on
+# canonical products) before their redesign, at the shapes timed below, on
+# an H100 80GB HBM3 at 700 W (PERF.md section 6 names the run); printed
+# beside this run's times in the kernels' phase lines, and in no other line
+BEFORE_MS = {"k6": 0.50674, "k6_base_coeffs": 2.0735,
+             "k6_xfe_coeffs": 0.67040, "k8_inv": 0.48976}
 
 
 def fold_bound(rows: int, n: int, m: int, xpts: bool, xcoef: bool) -> dict:
@@ -858,19 +864,24 @@ def phase_poly_batch(rng, counters) -> dict:
         if pin_of(fn(cw, 7, pts)) != tuple(PINNED_EXTRAPOLATE[name]):
             raise AssertionError(f"extrapolation misses the JAX pin {name}")
 
-    # K6 at forced segment lengths (one segment a lane up to one a row), K7
-    # at odd shapes (a part segment, more rows than a grid's y), K8's
-    # broadcasts, each against its twin
+    # K6 at forced segment lengths (one segment a lane up to one a row,
+    # segments shorter than a block) and at lengths below a block; K7 at
+    # odd shapes (a part segment, more rows than a grid's y);
+    # K8's broadcasts and its inverse at odd lengths and at length 1, each
+    # against its twin
     checked = 0
     for rows, n, m, xp, xc in ((3, 1 << 10, 64, False, False),
                                (2, 1 << 10, 5, True, False),
-                               (2, 1 << 8, 33, True, True)):
+                               (2, 1 << 8, 33, True, True),
+                               (2, 8, 33, False, False), (1, 1, 3, True, False),
+                               (2, 4, 7, True, True)):
         b = edge_field(rng, (rows, 3, n) if xc else (rows, n))
         w = edge_field(rng, (m, 3) if xp else (m,))
         want_fold = poly_cuda.coset_extrapolate_fold_plain(b, w)
         for seg in (None, 0, 3, 10):
             require_equal(f"K6 {(rows, n, m, xp, xc)} seg_log2={seg}",
-                          poly_cuda.coset_extrapolate_fold(b, w, seg_log2=seg),
+                          poly_cuda.coset_extrapolate_fold(b, w,
+                                                           seg_log2=seg),
                           want_fold)
             checked += 1
     for rows, n in ((2, 1), (1, 2049), (70000, 3), (3, 5000)):
@@ -883,8 +894,11 @@ def phase_poly_batch(rng, counters) -> dict:
     for op, sa, sb in (("mul", (3, 5, 100), (5, 100)), ("mul", (7, 1), (1,)),
                        ("xmul", (2, 3, 100), (3, 100)),
                        ("xmul_base", (4, 3, 77), (77,)),
-                       ("inv", (3, 100), None)):
+                       ("inv", (3, 100), None), ("inv", (3, 513), None),
+                       ("inv", (1,), None), ("inv", (len(K3_EDGES),), None)):
         a = edge_field(rng, sa)
+        if sa == (len(K3_EDGES),):
+            a = gf.from_u64(np.array(K3_EDGES, dtype=np.uint64)).cuda()
         b = None if sb is None else edge_field(rng, sb)
         require_equal(f"K8 {op} {sa} x {sb}", poly_cuda.gf_pointwise(a, b, op),
                       poly_cuda.gf_pointwise_plain(a, b, op))
@@ -901,6 +915,7 @@ def phase_poly_batch(rng, counters) -> dict:
           **fold_bound(1, POLY_BENCH_N, POLY_BENCH_POINTS, False, False),
           "shape": [1, POLY_BENCH_N, POLY_BENCH_POINTS],
           "plan": poly_cuda.fold_plan(1, POLY_BENCH_N, POLY_BENCH_POINTS)}
+    k6_before = {"ms": BEFORE_MS["k6"]}
     xw = gf.from_u64(xpts).cuda()
     stark = {}
     for label, x in (("base_coeffs", gf.from_u64(trace).cuda()),
@@ -912,7 +927,10 @@ def phase_poly_batch(rng, counters) -> dict:
                          lambda: poly_cuda.coset_extrapolate_fold_plain(
                              b, xw, point_chunk=4), reps=5, plain_reps=1),
             **fold_bound(b.shape[0], N, POLY_XFE_POINTS, True, xcoef),
-            "shape": list(b.shape) + [POLY_XFE_POINTS]}
+            "shape": list(b.shape) + [POLY_XFE_POINTS],
+            "plan": poly_cuda.fold_plan(b.shape[0], N, POLY_XFE_POINTS,
+                                        xpts=True, xcoef=xcoef)}
+        k6_before[label] = BEFORE_MS[f"k6_{label}"]
     k6["stark_shapes"] = stark
     dets = edge_field(rng, (W, N))
     dets[dets == 0] = 1
@@ -985,11 +1003,14 @@ def phase_poly_batch(rng, counters) -> dict:
          k6_ms=k6["ms"], k7_ms=k7["ms"], k8_ms=k8["ms"],
          profile_conv=device_breakdown(conv_core),
          profile_extrapolate=device_breakdown(extrapolate_core))
-    for name, wrapper, row in (
-            ("k6_coset_extrapolate_fold", "coset_extrapolate_fold", k6),
-            ("k7_batch_inversion", "batch_inversion", k7),
-            ("k8_gf_pointwise", "gf_pointwise", k8)):
-        emit(name, launches_on_path=launches[wrapper], **row)
+    for name, wrapper, row, before in (
+            ("k6_coset_extrapolate_fold", "coset_extrapolate_fold", k6,
+             k6_before),
+            ("k7_batch_inversion", "batch_inversion", k7, None),
+            ("k8_gf_pointwise", "gf_pointwise", k8,
+             {"inv_ms": BEFORE_MS["k8_inv"]})):
+        emit(name, launches_on_path=launches[wrapper], **row,
+             **({} if before is None else {"before_redesign": before}))
     return {"launches": launches, "k6": k6, "k7": k7, "k8": k8}
 
 

@@ -257,6 +257,90 @@ def test_inverse_or_zero_matches_jax():
     assert got.tolist() == [pow(int(x), P - 2, P) for x in a]
 
 
+# ---------------------------------------------------------------------------
+# K8's inverse chain (csrc/poly.cu::inverse_or_zero: gl::sqr_red squarings
+# and gl::mul_red products on lazy residues, one canonicalisation at the end)
+# ---------------------------------------------------------------------------
+
+M32, S32 = np.uint64(0xFFFF_FFFF), np.uint64(32)
+EPS = np.uint64(gf.EPSILON)
+
+
+def sqr_red_model(x):
+    """gl::sqr_red word by word: the square (p3, p2, p1, p0) from x_lo^2,
+    x_hi^2 and the doubled cross product; r = ((p1, p0) + p2 2^32 - (p2 +
+    p3)) mod 2^64 and d = carry - borrow; then the one fix r + d (2^32 - 1),
+    which the model checks cannot wrap."""
+    a, b = x & M32, x >> S32
+    with np.errstate(over="ignore"):
+        aa, bb, ab = a * a, b * b, a * b
+        t0 = (ab & M32) << np.uint64(1)
+        t1 = ((ab >> S32) << np.uint64(1)) + (t0 >> S32)
+        t0, t2, t1 = t0 & M32, t1 >> S32, t1 & M32
+        s = (aa >> S32) + t0
+        p1, c = s & M32, s >> S32
+        s = (bb & M32) + t1 + c
+        p2, c = s & M32, s >> S32
+        p3 = (bb >> S32) + t2 + c
+        assert (p3 <= M32).all()
+        s = p1 + p2
+        lo = (aa & M32) | ((s & M32) << S32)
+        q = p2 + p3
+        r = lo - q
+        d = (s >> S32).astype(np.int64) - (lo < q).astype(np.int64)
+        fixed = np.where(d > 0, r + EPS, np.where(d < 0, r - EPS, r))
+    assert not ((d > 0) & (fixed < r)).any(), "r + (2^32 - 1) wrapped"
+    assert not ((d < 0) & (fixed > r)).any(), "r - (2^32 - 1) wrapped"
+    return fixed
+
+
+def inverse_chain_model(x):
+    """K8's inverse: gf.py::inverse_or_zero's addition chain (:467-477) on
+    the squaring model and the port's mul_lazy."""
+    def nsquare(v, n):
+        for _ in range(n):
+            v = sqr_red_model(v)
+        return v
+
+    def mul(a, b):  # gl::mul_red: mul_lazy's words
+        return gf.to_u64(gf.mul_lazy(gf.from_u64(a), gf.from_u64(b)))
+
+    bin2 = mul(nsquare(x, 1), x)
+    bin3 = mul(nsquare(bin2, 1), x)
+    bin6 = mul(nsquare(bin3, 3), bin3)
+    bin12 = mul(nsquare(bin6, 6), bin6)
+    bin24 = mul(nsquare(bin12, 12), bin12)
+    bin30 = mul(nsquare(bin24, 6), bin6)
+    bin31 = mul(nsquare(bin30, 1), x)
+    bin31_z = nsquare(bin31, 1)
+    bin32 = mul(bin31_z, x)
+    r = mul(nsquare(bin31_z, 32), bin32)
+    return np.where(r >= np.uint64(P), r - np.uint64(P), r)
+
+
+def test_sqr_red_model_is_the_square():
+    """Any u64 in (the words where the fix-ups turn among them): a residue
+    of x^2, with the one fix-up never wrapping."""
+    a, b = _lazy_operands(18)
+    for x in (a, b, np.array(ABOVE_P + EDGES, dtype=np.uint64)):
+        got = sqr_red_model(x)
+        assert [int(g) % P for g in got] == [int(v) * int(v) % P for v in x]
+        np.testing.assert_array_equal(
+            np.where(got >= np.uint64(P), got - np.uint64(P), got),
+            tgfn.mul(x, x))
+
+
+def test_inverse_chain_model_matches_jax():
+    """On 0, 1, p - 1, 2^32 - 1, 2^32, the other edge words and random
+    words (the operands test_inverse_or_zero_matches_jax gives JAX)."""
+    a, _ = _operands(15)
+    got = inverse_chain_model(a)
+    np.testing.assert_array_equal(got, _jax(jgf.inverse_or_zero, a))
+    np.testing.assert_array_equal(got, _port(
+        lambda v: gf.inverse_or_zero(v, plain=True), a))
+    assert got.tolist() == [pow(int(v), P - 2, P) for v in a]
+
+
 @pytest.mark.parametrize("axis", [0, -1])
 def test_batch_inversion_matches_jax(axis):
     """Along either axis; a lane holding a 0 comes out all zeros in both."""
@@ -308,6 +392,7 @@ def test_port_never_imports_jax():
             "twenty_first_tpu_torch.probes.timing",
             "twenty_first_tpu_torch.probes.pass_probe",
             "twenty_first_tpu_torch.probes.alu_probe",
+            "twenty_first_tpu_torch.probes.fold_probe",
             "twenty_first_tpu_torch._build", "chip_smoke"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' "

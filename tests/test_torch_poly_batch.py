@@ -5,8 +5,10 @@ the CPU inverse loop); the port on the CPU, where the K3/K6/K7/K8 wrappers
 take their plain twins.
 
 Beside them, numpy models of K6's and K7's schedules (csrc/poly.cu): K6's
-segments folded by Horner and scaled by w^(s 2^log_l), summed by block
-and by group as ``fold_plan`` lays them out; K7's segment products, the
+segments folded a block of B terms at a time, each block's products summed
+unreduced in the kernel's 32-bit words and reduced once, the blocks chained
+by w^B, each segment scaled by w^(s 2^log_l) and summed by block and by
+group as ``fold_plan`` lays them out; K7's segment products, the
 per-row inversion of those products from one inverse, and each thread's
 back-sweep from its block's exclusive prefix and suffix products. Each is
 held against the twin and JAX, so the card's first build meets a schedule
@@ -130,113 +132,314 @@ def test_extrapolate_xfe_codewords_with_a_zero_row_match_jax():
 # K6's schedule
 # ---------------------------------------------------------------------------
 
+M32, S32 = np.uint64(0xFFFF_FFFF), np.uint64(32)
+#: the most products one of K6's accumulators takes in a block of B terms:
+#: the outer product by w^B and the block's terms (column 2 of an xfe x xfe
+#: product takes three of each)
+MOST_PRODUCTS = {(False, False): lambda b: b + 1,
+                 (True, False): lambda b: b + 3,
+                 (True, True): lambda b: 3 * b + 3}
 
-def _xpow2(w, k: int):
-    """w^(2^k) of (..., 3) xfe values."""
-    for _ in range(k):
-        w = xgf.mul(w, w)
-    return w
+
+class Wide:
+    """K6's accumulator (csrc/poly.cu ``Wide``) word by word: e, five 32-bit
+    words of sum a_lo b_lo + a_hi b_hi 2^64, and x, three words of the
+    cross products, each word a uint64 array below 2^32; a carry out of the
+    top word fails. With ``exact``, the same sum as Python integers beside
+    it."""
+
+    def __init__(self, shape, exact: bool = False):
+        self.e = [np.zeros(shape, np.uint64) for _ in range(5)]
+        self.x = [np.zeros(shape, np.uint64) for _ in range(3)]
+        self.exact = np.zeros(shape, dtype=object) if exact else None
+
+    @staticmethod
+    def _chain(words, start, terms):
+        """words[start:] += terms (32-bit each) with the carry running up
+        to the last word, which must not pass 32 bits."""
+        c = np.zeros_like(words[0])
+        for i in range(start, len(words)):
+            t = words[i] + c + (terms[i - start] if i - start < len(terms)
+                                else 0)
+            words[i], c = t & M32, t >> S32
+        assert not c.any(), "a carry left the accumulator"
+
+    def mac(self, a, b):
+        a, b = np.broadcast_arrays(np.asarray(a, np.uint64),
+                                   np.asarray(b, np.uint64))
+        a0, a1, b0, b1 = a & M32, a >> S32, b & M32, b >> S32
+        ll, hh = a0 * b0, a1 * b1
+        self._chain(self.e, 0, [ll & M32, ll >> S32, hh & M32, hh >> S32])
+        for m in (a0 * b1, a1 * b0):
+            self._chain(self.x, 0, [m & M32, m >> S32])
+        if self.exact is not None:
+            self.exact = self.exact + a.astype(object) * b.astype(object)
+
+    def value(self):
+        e = sum(w.astype(object) << (32 * i) for i, w in enumerate(self.e))
+        x = sum(w.astype(object) << (32 * i) for i, w in enumerate(self.x))
+        return e + (x << 32)
+
+    def reduce(self):
+        """reduce_wide: a lazy residue of the sum."""
+        w = [self.e[0]] + [v.copy() for v in self.e[1:]]
+        self._chain(w, 1, self.x)
+        r = _lazy(gf.reduce128_lazy, w[0] | (w[1] << S32),
+                  w[2] | (w[3] << S32))
+        return _lazy(gf.sub_lazy, r, w[4] << S32)
 
 
-def k6_model(b, w, plan):
-    """K6 on host arrays: b (rows, n) or (rows, 3, n), w (m,) or (m, 3)."""
+def _lazy(fn, *args):
+    """One of the port's lazy forms (math/gf.py, JAX's words bit for bit,
+    tests/test_torch_gf.py) on uint64 arrays."""
+    return gf.to_u64(fn(*(gf.from_u64(np.ascontiguousarray(a))
+                          for a in args)))
+
+
+def _canon(x):
+    return np.where(x >= gfn.P, x - gfn.P, x)
+
+
+def _xpow(w, e: int):
+    """w^e of (..., 3) xfe values, e >= 0."""
+    r = xgf.lift(np.ones(w.shape[:-1], np.uint64))
+    while e:
+        if e & 1:
+            r = xgf.mul(r, w)
+        w, e = xgf.mul(w, w), e >> 1
+    return r
+
+
+def _pow(w, e: int):
+    r = np.ones_like(w)
+    while e:
+        if e & 1:
+            r = gfn.mul(r, w)
+        w, e = gfn.mul(w, w), e >> 1
+    return r
+
+
+def k6_model(b, w, plan, exact: bool = False):
+    """K6 on host arrays, as csrc/poly.cu schedules it: b (rows, n) or
+    (rows, 3, n), w (m,) or (m, 3). A lane is (row, point, segment of
+    2^log_l coefficients); it folds its segment B = ``FOLD_BLOCK`` terms at
+    a time from the top, acc = reduce(acc * w^B + sum_i b[k0 + i] w^i),
+    every product of a block summed unreduced in ``Wide`` accumulators (an
+    xfe point's outer product by its 3x3 matrix, xfe coefficients by the
+    schoolbook product's five columns, X^3 = X - 1); then it scales by
+    w^(s 2^log_l) and the lanes are summed by block of segments and by
+    group as ``fold_plan`` lays them out. With ``exact`` it checks every
+    block's words against the exact sum and records the widest sum's bits
+    in ``k6_model.widest_sum_bits``."""
     xpts, xcoef = w.ndim == 2, b.ndim == 3
-    n, m = b.shape[-1], w.shape[0]
-    log_l, nseg = plan["log_l"], plan["nseg"]
-    big_l = 1 << log_l
-    rows = b.shape[0]
-    # lanes (row, point, segment): Horner over the segment, top down
-    shape = (rows, m, nseg) + ((3,) if xpts else ())
-    acc = np.zeros(shape, dtype=np.uint64)
-    wb = w[None, :, None] if xpts else w[None, :, None]
-    for off in range(big_l - 1, -1, -1):
-        k = np.arange(nseg) * big_l + off
-        live = k < n
-        kk = np.where(live, k, 0)
-        acc_next = xgf.mul(acc, wb) if xpts else gfn.mul(acc, wb)
-        if xcoef:
-            coef = np.moveaxis(b[:, :, kk], 1, -1)[:, None]  # (rows,1,nseg,3)
+    rows, n, m = b.shape[0], b.shape[-1], w.shape[0]
+    big_l, big_b = 1 << plan["log_l"], poly_cuda.FOLD_BLOCK
+    nseg = plan["nseg"]
+    lanes = (rows, m, nseg)
+    comps = 3 if xpts else 1
+    wc = w if xpts else w[:, None]  # (m, comps)
+    one = xgf.lift(np.ones(m, np.uint64)) if xpts else np.ones((m, 1),
+                                                              np.uint64)
+    mul = xgf.mul if xpts else (lambda u, v: gfn.mul(u, v))
+    pw = [one]
+    for _ in range(big_b):
+        pw.append(mul(pw[-1], wc))
+    wb = pw.pop()  # w^B; pw[i] = w^i, i < B
+    if xpts:
+        w0, w1, w2 = (wb[:, c] for c in range(3))
+        # the entries of w^B's matrix: (W0, W1, W2, -W1, -W2, W0 + W2,
+        # W1 - W2), every product of non-negative operands
+        o = [w0, w1, w2, gfn.neg(w1), gfn.neg(w2), gfn.add(w0, w2),
+             gfn.sub(w1, w2)]
+    acc = [np.zeros(lanes, np.uint64) for _ in range(comps)]
+    lo = np.arange(nseg) * big_l
+    hi = np.minimum(lo + big_l, n)
+    nb = -(-big_l // big_b)
+    most = 0
+    for j in range(nb - 1, -1, -1):
+        s = [Wide(lanes, exact) for _ in range(5 if xcoef else comps)]
+        # the outer product acc * w^B
+        if xpts:
+            for col, terms in enumerate(((0, 4, 3), (1, 5, 6), (2, 1, 5))):
+                for v, oi in zip(acc, terms):
+                    s[col].mac(v, o[oi][None, :, None])
         else:
-            coef = b[:, kk][:, None]  # (rows, 1, nseg)
-            if xpts:
-                coef = xgf.lift(coef)
-        acc_next = gfn.add(acc_next, coef)
-        mask = live[None, None, :, None] if xpts else live[None, None, :]
-        acc = np.where(mask, acc_next, acc)
-    # the scale w^(s 2^log_l), segment by segment
-    step = _xpow2(w, log_l) if xpts else np.array(
-        [pow(int(v), big_l, P) for v in w], dtype=np.uint64)
-    scale = np.empty((m, nseg) + ((3,) if xpts else ()), dtype=np.uint64)
-    cur = xgf.lift(np.ones(m, np.uint64)) if xpts else np.ones(m, np.uint64)
-    for s in range(nseg):
-        scale[:, s] = cur
-        cur = xgf.mul(cur, step) if xpts else gfn.mul(cur, step)
-    acc = xgf.mul(acc, scale[None]) if xpts else gfn.mul(acc, scale[None])
+            s[0].mac(acc[0], wb[None, :, None, 0])
+        for i in range(big_b):
+            k = lo + j * big_b + i
+            live = k < hi
+            kk = np.where(live, k, 0)
+            v = [pw[i][None, :, None, c] for c in range(comps)]
+            if xcoef:
+                cf = [np.where(live, b[:, c, kk], 0)[:, None, :]
+                      for c in range(3)]
+                for col, pairs in enumerate((((0, 0),), ((0, 1), (1, 0)),
+                                             ((0, 2), (1, 1), (2, 0)),
+                                             ((1, 2), (2, 1)), ((2, 2),))):
+                    for ci, vi in pairs:
+                        s[col].mac(cf[ci], v[vi])
+            else:
+                cf = np.where(live, b[:, kk], 0)[:, None, :]
+                for c in range(comps):
+                    s[c].mac(cf, v[c])
+        for acc_w in s if exact else ():
+            assert (acc_w.value() == acc_w.exact).all()
+            most = max(most, int(max(acc_w.exact.reshape(-1))).bit_length())
+        acc = [w_.reduce() for w_ in s[:comps]]
+        if xcoef:
+            c3, c4 = s[3].reduce(), s[4].reduce()
+            acc = [_lazy(gf.sub_lazy, acc[0], c3),
+                   _lazy(gf.sub_lazy, _lazy(gf.add_lazy, acc[1], c3), c4),
+                   _lazy(gf.add_lazy, acc[2], c4)]
+    # the segment's scale w^(s 2^log_l)
+    acc = np.stack([_canon(a) for a in acc], axis=-1)  # (rows, m, nseg, c)
+    for seg in range(nseg):
+        scale = _xpow(w, seg * big_l) if xpts else _pow(w, seg * big_l)[:,
+                                                                       None]
+        acc[:, :, seg] = mul(acc[:, :, seg], scale[None])
     # a block's segments, then the groups
     per_block = poly_cuda.FOLD_THREADS >> plan["log_p"]
-    out = np.zeros((rows, m) + ((3,) if xpts else ()), dtype=np.uint64)
+    out = np.zeros((rows, m, comps), dtype=np.uint64)
     for g in range(plan["groups"]):
         part = np.zeros_like(out)
-        for s in range(g * per_block, min((g + 1) * per_block, nseg)):
-            part = gfn.add(part, acc[:, :, s])
+        for seg in range(g * per_block, min((g + 1) * per_block, nseg)):
+            part = gfn.add(part, acc[:, :, seg])
         out = gfn.add(out, part)
-    return out
+    k6_model.widest_sum_bits = most
+    return out if xpts else out[..., 0]
+
+
+def _jax_fold(b, w):
+    """JAX's cores (poly_batch.py:152, :226) on the same coefficients and
+    points; the points padded to the chunk the pin tests compiled (64 base,
+    16 xfe)."""
+    from twenty_first_tpu.math import gf as jgf
+
+    xpts = w.ndim == 2
+    chunk = 16 if xpts else 64
+    wp = np.zeros((chunk,) + w.shape[1:], np.uint64)
+    wp[:w.shape[0]] = w
+    bl, bh = jgf.to_limbs(b)
+    wl, wh = jgf.to_limbs(wp)
+    if xpts:
+        out = jpb._coset_extrapolate_xfe_pow_core(bl, bh, wl, wh, b.ndim == 3)
+    else:
+        out = jpb._coset_extrapolate_pow_core(bl, bh, wl, wh)
+    return jgf.from_limbs(out)[:, :w.shape[0]]
+
+
+def _points(seed: int, m: int, xpts: bool):
+    """m points with 0, 1, p - 1 and 2^32 - 1 among them (as xfe: lifted,
+    and a base point lifted beside a full one)."""
+    pts = _values(seed, (m, 3) if xpts else (m,))
+    special = [0, 1, P - 1, (1 << 32) - 1][:m]
+    if xpts:
+        pts[:len(special)] = xgf.lift(np.array(special, np.uint64))
+    else:
+        pts[:len(special)] = special
+    return pts
 
 
 # (rows, n, m, xfe points, xfe coefficients, forced segment, against JAX):
-# JAX runs at the pins' shapes, whose ops are compiled by then, and once
-# at a small xfe shape
+# n a power of two, as the twin takes it, from 1 and 8 (below B, so no
+# multiple of it) to 2^10, segments of 1, 2, 8 and 64 coefficients; JAX's
+# cores at the shapes the pin tests compile (2^10 coefficients) and at n = 1
 @pytest.mark.parametrize("case", [
     (3, 1 << 10, 64, False, False, None, True),
-    (3, 1 << 10, 64, False, False, 0, False),
+    (3, 1, 1, False, False, None, True),
     (3, 1 << 10, 64, False, False, 3, False),
-    (3, 1 << 10, 64, False, False, 10, False),
-    (1, 1 << 12, 40, False, False, None, False),
-    (2, 1 << 10, 4, True, False, None, True),
-    (2, 1 << 8, 5, True, False, 2, True),
-    (2, 1 << 8, 5, True, True, 4, False), (2, 2, 33, True, True, 0, False),
-    (1, 1, 3, False, False, None, False)])
+    (3, 1 << 10, 64, False, False, 0, False),
+    (1, 8, 33, False, False, None, False),
+    (2, 1 << 10, 16, True, False, None, True),
+    (2, 1 << 8, 5, True, False, 6, False),
+    (2, 8, 16, True, True, None, False),
+    (2, 1 << 10, 16, True, True, None, True),
+    (2, 4, 33, True, True, 1, False),
+    (1, 1, 1, True, True, None, False),
+    (2, 1 << 10, 16, True, False, 3, True)])
 def test_k6_schedule_model_matches_twin_and_jax(case):
-    """The model at forced and planned segments against the twin, and the
-    extrapolation it stands in against JAX."""
+    """The model at planned and forced segments (segments shorter than a
+    block, n not a multiple of B, n = 1, m = 1 and 33; edge words among the
+    coefficients and the points 0, 1, p - 1, 2^32 - 1 and a lifted base
+    point) against the twin, and against JAX's cores."""
     rows, n, m, xpts, xcoef, seg, against_jax = case
-    cw = _values(10 + n, (rows, n, 3) if xcoef else (rows, n))
-    pts = _values(11 + n, (m, 3) if xpts else (m,))
-    x = gf_ext.from_u64(cw) if xcoef else gf.from_u64(cw)
-    coeffs = gf.to_u64(ntt.intt(x))
-    off_inv = np.uint64(pow(7, P - 2, P))
-    w = xgf.mul_base(pts, off_inv) if xpts else gfn.mul(pts, off_inv)
-    plan = poly_cuda.fold_plan(rows, n, m, seg)
-    got = k6_model(coeffs, w, plan)
+    b = _values(10 + n, (rows, 3, n) if xcoef else (rows, n))
+    w = _points(11 + n, m, xpts)
+    plan = poly_cuda.fold_plan(rows, n, m, seg, xpts=xpts, xcoef=xcoef)
+    got = k6_model(b, w, plan)
     twin = gf.to_u64(poly_cuda.coset_extrapolate_fold(
-        gf.from_u64(coeffs), gf.from_u64(w), point_chunk=16))
+        gf.from_u64(b), gf.from_u64(w), point_chunk=16))
     np.testing.assert_array_equal(got, twin)
     if against_jax:
-        if xpts:
-            want = jpb.batch_coset_extrapolate_xfe(cw, 7, pts, use_jit=False)
-        else:
-            want = jpb.batch_coset_extrapolate(cw, 7, pts, use_jit=False)
-        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, _jax_fold(b, w))
+
+
+@pytest.mark.parametrize("word", [P - 1, (1 << 64) - 1])
+@pytest.mark.parametrize("kinds", sorted(MOST_PRODUCTS))
+def test_k6_accumulator_cannot_overflow(kinds, word):
+    """At B = FOLD_BLOCK, the most products one accumulator takes in a block
+    of all-(p - 1) operands (and of the largest lazy residue, 2^64 - 1)
+    stay exact in its words, far below 2^160, and reduce to the sum."""
+    count = MOST_PRODUCTS[kinds](poly_cuda.FOLD_BLOCK)
+    acc = Wide((1,), exact=True)
+    for _ in range(count):
+        acc.mac(np.array([word], np.uint64), np.array([word], np.uint64))
+    want = count * word * word
+    assert acc.value()[0] == acc.exact[0] == want < 1 << 136
+    assert int(acc.reduce()[0]) % P == want % P
+
+
+def test_k6_model_with_all_p_minus_1_matches_twin():
+    """Coefficients and points all p - 1, B = 16, every field kind."""
+    for b_shape, w_shape in (((2, 128), (3,)), ((2, 128), (3, 3)),
+                             ((2, 3, 128), (3, 3))):
+        b = np.full(b_shape, P - 1, np.uint64)
+        w = np.full(w_shape, P - 1, np.uint64)
+        plan = poly_cuda.fold_plan(2, 128, 3, 6, xpts=len(w_shape) == 2,
+                                   xcoef=len(b_shape) == 3)
+        got = k6_model(b, w, plan, exact=True)
+        assert k6_model.widest_sum_bits <= 134
+        np.testing.assert_array_equal(got, gf.to_u64(
+            poly_cuda.coset_extrapolate_fold(gf.from_u64(b), gf.from_u64(w))))
 
 
 def test_k6_plan_covers_every_coefficient():
     """Segments tile the coefficients with none empty; blocks of segments
-    cover every segment; a warp's lanes are whole groups of points."""
+    cover every segment; a warp's lanes are whole groups of points; the
+    path's shapes fill their lane targets."""
     for rows, n, m in [(1, 1 << 18, 1 << 10), (8, 1 << 20, 16),
                        (2, 1 << 20, 16), (3, 1 << 10, 64), (1, 1, 1),
                        (5, 1000, 3), (70000, 4, 2)]:
         for seg in (None, 0, 5):
-            p = poly_cuda.fold_plan(rows, n, m, seg)
-            big_l = 1 << p["log_l"]
-            assert (p["nseg"] - 1) * big_l < n <= p["nseg"] * big_l
-            per_block = poly_cuda.FOLD_THREADS >> p["log_p"]
-            assert (p["groups"] - 1) * per_block < p["nseg"]
-            assert p["groups"] * per_block >= p["nseg"]
-            assert 1 << p["log_p"] <= 32 and p["tiles"] << p["log_p"] >= m
-    bench = poly_cuda.fold_plan(1, 1 << 18, 1 << 10)
-    assert (bench["log_l"], bench["groups"]) == (10, 32)
-    assert bench["groups"] * poly_cuda.FOLD_THREADS * bench["tiles"] \
-        == poly_cuda.FOLD_TARGET_LANES
+            for kinds in poly_cuda.FOLD_TARGET_LANES:
+                p = poly_cuda.fold_plan(rows, n, m, seg, xpts=kinds[0],
+                                        xcoef=kinds[1])
+                big_l = 1 << p["log_l"]
+                assert (p["nseg"] - 1) * big_l < n <= p["nseg"] * big_l
+                per_block = poly_cuda.FOLD_THREADS >> p["log_p"]
+                assert (p["groups"] - 1) * per_block < p["nseg"]
+                assert p["groups"] * per_block >= p["nseg"]
+                assert 1 << p["log_p"] <= 32 and p["tiles"] << p["log_p"] >= m
+    for rows, n, m, kinds in ((1, 1 << 18, 1 << 10, (False, False)),
+                              (8, 1 << 20, 16, (True, False)),
+                              (2, 1 << 20, 16, (True, True))):
+        plan = poly_cuda.fold_plan(rows, n, m, xpts=kinds[0], xcoef=kinds[1])
+        lanes = rows * plan["groups"] * poly_cuda.FOLD_THREADS * plan["tiles"]
+        assert lanes == poly_cuda.FOLD_TARGET_LANES[kinds]
+
+
+def test_fold_probe_forces_the_planned_segment_for_a_lane_target():
+    """probes/fold_probe.py sweeps lane targets by forcing the segment that
+    fold_plan picks for each: at the plan's own targets that is the plan's
+    segment, and a larger target gives a segment no longer."""
+    from twenty_first_tpu_torch.probes import fold_probe
+
+    for _, rows, n, m, xpts, xcoef in fold_probe.SHAPES:
+        target = poly_cuda.FOLD_TARGET_LANES[xpts, xcoef]
+        plan = poly_cuda.fold_plan(rows, n, m, xpts=xpts, xcoef=xcoef)
+        log_t = target.bit_length() - 1
+        assert fold_probe.seg_log2_for(rows, n, m, log_t) == plan["log_l"]
+        assert fold_probe.seg_log2_for(rows, n, m, log_t + 1) <= plan["log_l"]
 
 
 # ---------------------------------------------------------------------------

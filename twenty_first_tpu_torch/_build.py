@@ -51,6 +51,8 @@ _SIGNATURES = {
     "tf_ntt_stage": (_VP, _VP, _I, _I, _LL, _LL, _LL, _LL, _LL, _VP, _I, _VP),
     # a, b, out, n, k, op, stream
     "tf_gf_chain": (_VP, _VP, _VP, _LL, _I, _I, _VP),
+    # out, blocks, k, form, stream
+    "tf_imad_rate": (_VP, _I, _I, _I, _VP),
     # a, b, out, rows, n, a_row, b_row, out_row, op, stream
     "tf_gf_pointwise": (_VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _I, _VP),
     # x, out, rows, n, totals, scratch, stream

@@ -90,6 +90,7 @@ __device__ __forceinline__ uint64_t join(uint32_t lo, uint32_t hi) {
 // or selects: each EPSILON fix-up is the carry or borrow of a 32-bit chain
 // turned into a 0 / 2^32 - 1 mask. K1-K3 use them; K5 (probes.cu) times
 // the C forms, and its rates are the yardstick earlier measurements used.
+// sqr_red alone gives a representative of its own (K8's inverse chain).
 
 // a * b for any u64 residues, a lazy residue out: the 128-bit product
 // p = (p3, p2, p1, p0) as a carry chain of 32-bit multiply-adds, then
@@ -123,6 +124,45 @@ __device__ __forceinline__ uint64_t mul_red(uint64_t a, uint64_t b) {
       "addc.u32 %1, %1, 0;\n\t}"
       : "=r"(r0), "=r"(r1)
       : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)));
+  return join(r0, r1);
+}
+
+// x * x for any u64 x, a lazy residue out (not mul_red's representative).
+// The 128-bit square (p3, p2, p1, p0) from three 32x32 partial products,
+// the cross product once and doubled; then V = (p1, p0) + p2 2^32 - (p2 +
+// p3), which is x^2 mod p (2^64 = 2^32 - 1, 2^96 = -1), lies in (-2^33,
+// 2^65 - 2^32), so V mod 2^64 = r and V = r + d 2^64 with d = carry - borrow
+// in {-1, 0, 1}. The one fix r + d (2^32 - 1) cannot wrap: d = 1 leaves r
+// below 2^64 - 2^32, d = -1 leaves it above 2^64 - 2^33.
+__device__ __forceinline__ uint64_t sqr_red(uint64_t x) {
+  uint32_t r0, r1;
+  asm("{\n\t.reg .u32 p0, p1, p2, p3, t0, t1, t2, q0, q1, c, b, s;\n\t"
+      "mul.lo.u32 p0, %2, %2;\n\t"
+      "mul.hi.u32 p1, %2, %2;\n\t"
+      "mul.lo.u32 p2, %3, %3;\n\t"
+      "mul.hi.u32 p3, %3, %3;\n\t"
+      "mul.lo.u32 t0, %2, %3;\n\t"
+      "mul.hi.u32 t1, %2, %3;\n\t"
+      "add.cc.u32 t0, t0, t0;\n\t"  // (t2, t1, t0) = 2 x_lo x_hi
+      "addc.cc.u32 t1, t1, t1;\n\t"
+      "addc.u32 t2, 0, 0;\n\t"
+      "add.cc.u32 p1, p1, t0;\n\t"
+      "addc.cc.u32 p2, p2, t1;\n\t"
+      "addc.u32 p3, p3, t2;\n\t"
+      "add.cc.u32 t1, p1, p2;\n\t"  // (t1, p0) = (p1, p0) + p2 2^32, carry c
+      "addc.u32 c, 0, 0;\n\t"
+      "add.cc.u32 q0, p2, p3;\n\t"  // q = p2 + p3
+      "addc.u32 q1, 0, 0;\n\t"
+      "sub.cc.u32 %0, p0, q0;\n\t"  // r = (t1, p0) - q, borrow b
+      "subc.cc.u32 %1, t1, q1;\n\t"
+      "subc.u32 b, 0, 0;\n\t"
+      "add.u32 s, b, c;\n\t"  // d
+      "neg.s32 c, s;\n\t"  // r + d (2^32 - 1): add (d < 0 ? -1 : 0, -d)
+      "shr.s32 b, s, 31;\n\t"
+      "add.cc.u32 %0, %0, c;\n\t"
+      "addc.u32 %1, %1, b;\n\t}"
+      : "=r"(r0), "=r"(r1)
+      : "r"(lo32(x)), "r"(hi32(x)));
   return join(r0, r1);
 }
 

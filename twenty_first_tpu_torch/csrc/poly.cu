@@ -10,15 +10,23 @@
 // twenty_first_tpu/math/poly_batch.py::_coset_extrapolate_pow_core (:152)
 // and ::_coset_extrapolate_xfe_pow_core (:226): out[r, j] = sum_k b[r, k]
 // w_j^k. JAX builds a (rows, points, n) table of terms; this never does.
-// What bounds it: the products, rows * n * m of them (one Horner step per
-// coefficient and point), against a few bytes. The design splits each row's
-// coefficients into segments of 2^log_l: a lane folds one segment for one
-// point by Horner (acc = acc * w + b[k], lazy residues in registers) and
-// scales the result by w^(s 2^log_l). A warp's lanes are 2^log_p points
-// of one or a few segments, so a coefficient load is one broadcast for
-// those points. A block adds its segments' partial sums in shared memory;
-// a second kernel adds the blocks'. The plan (ops/poly_cuda.py::fold_plan)
-// picks the longest segment that still gives about 2^18 lanes.
+// What bounds it: the products, rows * n * m terms (coefficient times point
+// power) of one, three or six 32x32 products each by the fewest known
+// (base points; xfe points over base coefficients; xfe over xfe), against a
+// few bytes. A lane owns one point and one segment of 2^log_l coefficients
+// of a row. The cost a term is what the design cuts: the lane keeps w^0 ..
+// w^(B-1) in registers (B = 16) and folds B coefficients at a time from the
+// top, acc = acc * w^B + sum_i b[k0 + i] w^i, with the block's B + 1
+// products (xfe: per component, or the schoolbook product's five columns)
+// summed unreduced in 160-bit accumulators of 32-bit multiply-add carry
+// chains and reduced once a block. With an xfe point the outer product by
+// w^B is its 3x3 matrix over the base field, so it adds into the same
+// accumulators. So a term is one, three or nine multiply-add chains and no
+// reduction. The lane scales its sum by w^(s 2^log_l); a warp's lanes are
+// 2^log_p points of one or a few segments, so a coefficient load is one
+// broadcast for those points. A block adds its segments' partial sums in
+// shared memory; a second kernel adds the blocks'. The plan
+// (ops/poly_cuda.py::fold_plan) picks the segment length.
 //
 // K7 inv_totals_kernel, inv_scan_kernel, inv_sweep_kernel <-
 // twenty_first_tpu/math/gf.py::batch_inversion (:503), which JAX computes
@@ -43,7 +51,11 @@
 // element (an xfe element: its three components) over a row, with a row
 // stride for each operand, 0 for a row read for every row. The xfe product
 // repeats the JAX package's order of canonical operations, so it gives
-// the plain twin's words for any inputs.
+// the plain twin's words for any inputs. The inverse runs JAX's chain on
+// lazy residues with one canonicalisation at its end: squarings of three
+// 32x32 partial products (gl::sqr_red) and carry-chain products, two
+// independent elements a thread so that one chain's latency hides the
+// other's.
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
@@ -52,6 +64,8 @@ namespace {
 
 constexpr int kPointwiseThreads = 256;
 constexpr int kFoldThreads = 256;
+// K6's block: the terms a lane sums unreduced between two reductions
+constexpr int kFoldBlock = 16;
 constexpr int kInvThreads = 256;
 constexpr int kInvPerThread = 8;
 constexpr int kInvSegment = kInvThreads * kInvPerThread;
@@ -94,25 +108,51 @@ __device__ __forceinline__ Xfe xmul_lazy(const Xfe& s, const Xfe& o) {
   return {r0, r1, r2};
 }
 
-__device__ __forceinline__ uint64_t nsquare(uint64_t x, int n) {
-  for (int i = 0; i < n; ++i) x = gl::mul(x, x);
+// kN independent field words, so that their chains interleave.
+template <int kN>
+struct Words {
+  uint64_t v[kN];
+};
+
+// x^(2^n), each word, on lazy residues.
+template <int kN>
+__device__ __forceinline__ Words<kN> nsquare(Words<kN> x, int n) {
+  for (int i = 0; i < n; ++i) {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) x.v[e] = gl::sqr_red(x.v[e]);
+  }
   return x;
 }
 
-// x^(p - 2) by the fixed addition chain of gf.py::inverse_or_zero
-// (:467-477); 0 -> 0.
-__device__ uint64_t inverse_or_zero(uint64_t x) {
-  using gl::mul;
-  const uint64_t bin2 = mul(mul(x, x), x);
-  const uint64_t bin3 = mul(mul(bin2, bin2), x);
-  const uint64_t bin6 = mul(nsquare(bin3, 3), bin3);
-  const uint64_t bin12 = mul(nsquare(bin6, 6), bin6);
-  const uint64_t bin24 = mul(nsquare(bin12, 12), bin12);
-  const uint64_t bin30 = mul(nsquare(bin24, 6), bin6);
-  const uint64_t bin31 = mul(mul(bin30, bin30), x);
-  const uint64_t bin31_z = mul(bin31, bin31);
-  const uint64_t bin32 = mul(bin31_z, x);
-  return mul(nsquare(bin31_z, 32), bin32);
+template <int kN>
+__device__ __forceinline__ Words<kN> wmul(Words<kN> x, const Words<kN>& y) {
+#pragma unroll
+  for (int e = 0; e < kN; ++e) x.v[e] = gl::mul_red(x.v[e], y.v[e]);
+  return x;
+}
+
+// x^(p - 2) of each word by the fixed addition chain of
+// gf.py::inverse_or_zero (:467-477), 63 squarings and 9 products on lazy
+// residues, canonical out; 0 -> 0 (every step of 0 is exactly 0).
+template <int kN>
+__device__ __forceinline__ Words<kN> inverse_or_zero(const Words<kN>& x) {
+  const Words<kN> bin2 = wmul(nsquare(x, 1), x);
+  const Words<kN> bin3 = wmul(nsquare(bin2, 1), x);
+  const Words<kN> bin6 = wmul(nsquare(bin3, 3), bin3);
+  const Words<kN> bin12 = wmul(nsquare(bin6, 6), bin6);
+  const Words<kN> bin24 = wmul(nsquare(bin12, 12), bin12);
+  const Words<kN> bin30 = wmul(nsquare(bin24, 6), bin6);
+  const Words<kN> bin31 = wmul(nsquare(bin30, 1), x);
+  const Words<kN> bin31_z = nsquare(bin31, 1);
+  const Words<kN> bin32 = wmul(bin31_z, x);
+  Words<kN> r = wmul(nsquare(bin31_z, 32), bin32);
+#pragma unroll
+  for (int e = 0; e < kN; ++e) r.v[e] = gl::canon(r.v[e]);
+  return r;
+}
+
+__device__ __forceinline__ uint64_t inverse_or_zero(uint64_t x) {
+  return inverse_or_zero<1>(Words<1>{{x}}).v[0];
 }
 
 // ---------------------------------------------------------------------------
@@ -121,19 +161,28 @@ __device__ uint64_t inverse_or_zero(uint64_t x) {
 
 // Element j of every row r: op(a[r * a_row + ...], b[r * b_row + ...]) into
 // out[r * out_row + ...]; an xfe row holds its components n apart.
+// The inverse takes elements j and j + 256 of a block's 512, so that a
+// thread runs two independent chains.
 template <int kOp>
 __global__ void __launch_bounds__(kPointwiseThreads)
     gf_pointwise_kernel(const uint64_t* __restrict__ a,
                         const uint64_t* __restrict__ b,
                         uint64_t* __restrict__ out, int64_t rows, int64_t n,
                         int64_t a_row, int64_t b_row, int64_t out_row) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
+  constexpr int kPer = kOp == 3 ? 2 : 1;
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kPointwiseThreads *
+                        kPer + threadIdx.x;
   if (j >= n) return;
   for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
     const uint64_t* pa = a + r * a_row + j;
     uint64_t* po = out + r * out_row + j;
-    if constexpr (kOp == 0) {
+    if constexpr (kOp == 3) {
+      const bool two = j + kPointwiseThreads < n;  // else past the row's end
+      const Words<2> inv = inverse_or_zero<2>(
+          Words<2>{{pa[0], two ? pa[kPointwiseThreads] : 0}});
+      po[0] = inv.v[0];
+      if (two) po[kPointwiseThreads] = inv.v[1];
+    } else if constexpr (kOp == 0) {
       po[0] = gl::mul(pa[0], b[r * b_row + j]);
     } else if constexpr (kOp == 1) {
       const uint64_t* pb = b + r * b_row + j;
@@ -146,8 +195,6 @@ __global__ void __launch_bounds__(kPointwiseThreads)
       po[0] = gl::mul(pa[0], v);
       po[n] = gl::mul(pa[n], v);
       po[2 * n] = gl::mul(pa[2 * n], v);
-    } else {
-      po[0] = inverse_or_zero(pa[0]);
     }
   }
 }
@@ -296,52 +343,142 @@ __global__ void __launch_bounds__(kInvThreads)
 // K6
 // ---------------------------------------------------------------------------
 
-template <bool kX>
-struct Acc;
-
-template <>
-struct Acc<false> {
-  uint64_t c0 = 0;
-  __device__ __forceinline__ void mul(const Acc& o) {
-    c0 = gl::mul_red(c0, o.c0);
-  }
-  __device__ __forceinline__ void canon() { c0 = gl::canon(c0); }
-  __device__ __forceinline__ uint64_t comp(int) const { return c0; }
+// An unreduced sum of 128-bit products a * b, kept as two sums so that
+// each 64-bit partial product adds into an aligned register pair: e, five
+// 32-bit words, of a_lo b_lo + a_hi b_hi 2^64, and x, three words, of the
+// cross products a_lo b_hi + a_hi b_lo, worth 2^32 each. Fewer than 2^31
+// products stay below 2^160, so nothing wraps.
+struct Wide {
+  uint32_t e0 = 0, e1 = 0, e2 = 0, e3 = 0, e4 = 0, x0 = 0, x1 = 0, x2 = 0;
 };
 
-template <>
-struct Acc<true> {
-  Xfe v{0, 0, 0};
-  __device__ __forceinline__ void mul(const Acc& o) { v = xmul_lazy(v, o.v); }
-  __device__ __forceinline__ void canon() {
-    v = {gl::canon(v.c0), gl::canon(v.c1), gl::canon(v.c2)};
+// s += a * b for any u64 a, b, nothing reduced: three carry chains of
+// 32-bit multiply-adds.
+__device__ __forceinline__ void mac(Wide& s, uint64_t a, uint64_t b) {
+  asm("{\n\t"
+      "mad.lo.cc.u32 %0, %8, %10, %0;\n\t"
+      "madc.hi.cc.u32 %1, %8, %10, %1;\n\t"
+      "madc.lo.cc.u32 %2, %9, %11, %2;\n\t"
+      "madc.hi.cc.u32 %3, %9, %11, %3;\n\t"
+      "addc.u32 %4, %4, 0;\n\t"
+      "mad.lo.cc.u32 %5, %8, %11, %5;\n\t"
+      "madc.hi.cc.u32 %6, %8, %11, %6;\n\t"
+      "addc.u32 %7, %7, 0;\n\t"
+      "mad.lo.cc.u32 %5, %9, %10, %5;\n\t"
+      "madc.hi.cc.u32 %6, %9, %10, %6;\n\t"
+      "addc.u32 %7, %7, 0;\n\t}"
+      : "+r"(s.e0), "+r"(s.e1), "+r"(s.e2), "+r"(s.e3), "+r"(s.e4),
+        "+r"(s.x0), "+r"(s.x1), "+r"(s.x2)
+      : "r"(gl::lo32(a)), "r"(gl::hi32(a)), "r"(gl::lo32(b)),
+        "r"(gl::hi32(b)));
+}
+
+// s mod p as a lazy residue: e + x 2^32 = (w1, w0) + (w3, w2) 2^64 + w4
+// 2^128, then reduce128_lazy and w4 2^128 = -w4 2^32.
+__device__ __forceinline__ uint64_t reduce_wide(const Wide& s) {
+  uint32_t w1, w2, w3, w4;
+  asm("add.cc.u32 %0, %4, %8;\n\t"
+      "addc.cc.u32 %1, %5, %9;\n\t"
+      "addc.cc.u32 %2, %6, %10;\n\t"
+      "addc.u32 %3, %7, 0;"
+      : "=r"(w1), "=r"(w2), "=r"(w3), "=r"(w4)
+      : "r"(s.e1), "r"(s.e2), "r"(s.e3), "r"(s.e4), "r"(s.x0), "r"(s.x1),
+        "r"(s.x2));
+  const uint64_t r = gl::reduce128_lazy_cc(gl::join(s.e0, w1),
+                                           gl::join(w2, w3));
+  return gl::sub_lazy(r, static_cast<uint64_t>(w4) << 32);
+}
+
+// A point (one word, or an xfe's three) as lazy residues.
+template <bool kX>
+struct Pt {
+  uint64_t c[kX ? 3 : 1];
+  __device__ __forceinline__ static Pt one() {
+    Pt r{};
+    r.c[0] = 1;
+    return r;
   }
-  __device__ __forceinline__ uint64_t comp(int c) const {
-    return c == 0 ? v.c0 : (c == 1 ? v.c1 : v.c2);
+  __device__ __forceinline__ Pt operator*(const Pt& o) const {
+    Pt r;
+    if constexpr (kX) {
+      const Xfe v = xmul_lazy({c[0], c[1], c[2]}, {o.c[0], o.c[1], o.c[2]});
+      r.c[0] = v.c0;
+      r.c[1] = v.c1;
+      r.c[2] = v.c2;
+    } else {
+      r.c[0] = gl::mul_red(c[0], o.c[0]);
+    }
+    return r;
   }
 };
 
 // base^e (lazy), e >= 0.
 template <bool kX>
-__device__ __forceinline__ Acc<kX> power(Acc<kX> base, int64_t e) {
-  Acc<kX> result;
-  if constexpr (kX) {
-    result.v = {1, 0, 0};
-  } else {
-    result.c0 = 1;
-  }
+__device__ __forceinline__ Pt<kX> power(Pt<kX> base, int64_t e) {
+  Pt<kX> result = Pt<kX>::one();
   while (e) {
-    if (e & 1) result.mul(base);
+    if (e & 1) result = result * base;
     e >>= 1;
-    if (e) base.mul(base);
+    if (e) base = base * base;
   }
   return result;
+}
+
+// s[0..2] += v * W for the point W, as the product by W's 3x3 matrix over
+// the base field (X^3 = X - 1), from the entries o = (W0, W1, W2, -W1,
+// -W2, W0 + W2, W1 - W2): every product has non-negative operands.
+__device__ __forceinline__ void mac_xmatrix(Wide (&s)[5], const uint64_t* v,
+                                            const uint64_t (&o)[7]) {
+  mac(s[0], v[0], o[0]);
+  mac(s[0], v[1], o[4]);
+  mac(s[0], v[2], o[3]);
+  mac(s[1], v[0], o[1]);
+  mac(s[1], v[1], o[5]);
+  mac(s[1], v[2], o[6]);
+  mac(s[2], v[0], o[2]);
+  mac(s[2], v[1], o[1]);
+  mac(s[2], v[2], o[5]);
+}
+
+// One block of kFoldBlock coefficients from k0 (the coefficients at hi and
+// above read as 0 when kMasked): s[c] += sum_i b[k0 + i] (w^i)_c; with xfe
+// coefficients the schoolbook product's five columns.
+template <bool kXPts, bool kXCoef, bool kMasked>
+__device__ __forceinline__ void fold_block(
+    Wide (&s)[5], const uint64_t* __restrict__ row, int64_t k0, int64_t hi,
+    int64_t n, const uint64_t (&pw)[kFoldBlock][3]) {
+#pragma unroll
+  for (int i = 0; i < kFoldBlock; ++i) {
+    const int64_t k = k0 + i;
+    const bool live = !kMasked || k < hi;
+    const uint64_t* v = pw[i];
+    if constexpr (kXCoef) {
+      const uint64_t c0 = live ? row[k] : 0;
+      const uint64_t c1 = live ? row[n + k] : 0;
+      const uint64_t c2 = live ? row[2 * n + k] : 0;
+      mac(s[0], c0, v[0]);
+      mac(s[1], c0, v[1]);
+      mac(s[1], c1, v[0]);
+      mac(s[2], c0, v[2]);
+      mac(s[2], c1, v[1]);
+      mac(s[2], c2, v[0]);
+      mac(s[3], c1, v[2]);
+      mac(s[3], c2, v[1]);
+      mac(s[4], c2, v[2]);
+    } else {
+      const uint64_t c = live ? row[k] : 0;
+#pragma unroll
+      for (int j = 0; j < (kXPts ? 3 : 1); ++j) mac(s[j], c, v[j]);
+    }
+  }
 }
 
 // partial[r, blockIdx.y, p, c]: the sum over this block's segments s of
 // w_p^(s 2^log_l) * sum_{k in s} b[r, k] w_p^(k - s 2^log_l), component c.
 // Thread t takes point blockIdx.x * 2^log_p + (t mod 2^log_p) and segment
-// blockIdx.y * (256 / 2^log_p) + t / 2^log_p.
+// blockIdx.y * (256 / 2^log_p) + t / 2^log_p. Its segment is folded B =
+// kFoldBlock coefficients at a time from the top: acc = acc * w^B + sum_i
+// b[k0 + i] w^i, every product of a block summed unreduced and reduced once.
 template <bool kXPts, bool kXCoef>
 __global__ void __launch_bounds__(kFoldThreads)
     coset_fold_kernel(const uint64_t* __restrict__ b,
@@ -357,47 +494,81 @@ __global__ void __launch_bounds__(kFoldThreads)
   const int64_t seg = static_cast<int64_t>(blockIdx.y) * per_block +
                       (tid >> log_p);
   const bool active = p < m && seg < nseg;
-  Acc<kXPts> wp;
+  // the lane's powers w^0 .. w^(B-1), the outer factor w^B (xfe: as its
+  // matrix's entries) and the segment's scale w^(seg 2^log_l)
+  uint64_t pw[kFoldBlock][3] = {};
+  uint64_t ow[7] = {};
+  Pt<kXPts> scale = Pt<kXPts>::one();
   if (active) {
-    if constexpr (kXPts) {
-      wp.v = {w[3 * p], w[3 * p + 1], w[3 * p + 2]};
-    } else {
-      wp.c0 = w[p];
+    Pt<kXPts> wp;
+#pragma unroll
+    for (int c = 0; c < kComps; ++c) wp.c[c] = w[kComps * p + c];
+    Pt<kXPts> cur = Pt<kXPts>::one();
+#pragma unroll
+    for (int i = 0; i < kFoldBlock; ++i) {
+#pragma unroll
+      for (int c = 0; c < kComps; ++c) pw[i][c] = cur.c[c];
+      cur = cur * wp;
     }
+    if constexpr (kXPts) {
+      ow[0] = cur.c[0];
+      ow[1] = cur.c[1];
+      ow[2] = cur.c[2];
+      ow[3] = gl::sub_lazy(0, cur.c[1]);
+      ow[4] = gl::sub_lazy(0, cur.c[2]);
+      ow[5] = gl::add_lazy_cc(cur.c[0], cur.c[2]);
+      ow[6] = gl::sub_lazy(cur.c[1], cur.c[2]);
+    } else {
+      ow[0] = cur.c[0];
+    }
+    Pt<kXPts> step = wp;  // w^(2^log_l), then w^(seg 2^log_l)
+    for (int i = 0; i < log_l; ++i) step = step * step;
+    scale = power(step, seg);
   }
   const int64_t lo = seg << log_l;
   const int64_t hi = lo + (int64_t{1} << log_l) < n ? lo + (int64_t{1} << log_l)
                                                     : n;
+  const int64_t nb = (hi - lo + kFoldBlock - 1) / kFoldBlock;
   for (int64_t r = blockIdx.z; r < rows; r += gridDim.z) {
-    Acc<kXPts> acc;
+    Pt<kXPts> acc{};
     if (active) {
-      for (int64_t k = hi - 1; k >= lo; --k) {
-        acc.mul(wp);
-        if constexpr (kXCoef) {
-          const uint64_t* pb = b + r * 3 * n + k;
-          acc.v.c0 = gl::add_lazy_cc(acc.v.c0, pb[0]);
-          acc.v.c1 = gl::add_lazy_cc(acc.v.c1, pb[n]);
-          acc.v.c2 = gl::add_lazy_cc(acc.v.c2, pb[2 * n]);
-        } else if constexpr (kXPts) {
-          acc.v.c0 = gl::add_lazy_cc(acc.v.c0, b[r * n + k]);
+      const uint64_t* row = b + r * (kXCoef ? 3 : 1) * n;
+      for (int64_t j = nb - 1; j >= 0; --j) {
+        const int64_t k0 = lo + j * kFoldBlock;
+        Wide s[5];
+        if constexpr (kXPts) {
+          mac_xmatrix(s, acc.c, ow);
         } else {
-          acc.c0 = gl::add_lazy_cc(acc.c0, b[r * n + k]);
+          mac(s[0], acc.c[0], ow[0]);
+        }
+        if (k0 + kFoldBlock <= hi) {
+          fold_block<kXPts, kXCoef, false>(s, row, k0, hi, n, pw);
+        } else {
+          fold_block<kXPts, kXCoef, true>(s, row, k0, hi, n, pw);
+        }
+#pragma unroll
+        for (int c = 0; c < kComps; ++c) acc.c[c] = reduce_wide(s[c]);
+        if constexpr (kXCoef) {  // X^3 = X - 1, X^4 = X^2 - X
+          const uint64_t c3 = reduce_wide(s[3]);
+          const uint64_t c4 = reduce_wide(s[4]);
+          acc.c[0] = gl::sub_lazy(acc.c[0], c3);
+          acc.c[1] = gl::sub_lazy(gl::add_lazy_cc(acc.c[1], c3), c4);
+          acc.c[2] = gl::add_lazy_cc(acc.c[2], c4);
         }
       }
-      Acc<kXPts> step = wp;  // w^(2^log_l), then w^(seg 2^log_l)
-      for (int i = 0; i < log_l; ++i) step.mul(step);
-      acc.mul(power(step, seg));
-      acc.canon();
+      acc = acc * scale;
+#pragma unroll
+      for (int c = 0; c < kComps; ++c) acc.c[c] = gl::canon(acc.c[c]);
     }
 #pragma unroll
-    for (int c = 0; c < kComps; ++c) red[c][tid] = acc.comp(c);
+    for (int c = 0; c < kComps; ++c) red[c][tid] = acc.c[c];
     __syncthreads();
     if (tid < pts && p < m) {
 #pragma unroll
       for (int c = 0; c < kComps; ++c) {
-        uint64_t s = 0;
-        for (int q = 0; q < per_block; ++q) s = gl::add(s, red[c][q * pts + tid]);
-        partial[((r * groups + blockIdx.y) * m + p) * kComps + c] = s;
+        uint64_t t = 0;
+        for (int q = 0; q < per_block; ++q) t = gl::add(t, red[c][q * pts + tid]);
+        partial[((r * groups + blockIdx.y) * m + p) * kComps + c] = t;
       }
     }
     __syncthreads();
@@ -456,8 +627,8 @@ extern "C" int tf_gf_pointwise(const void* a, const void* b, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rows > 0 && n > 0) {
-    const dim3 grid(static_cast<unsigned>((n + kPointwiseThreads - 1) /
-                                          kPointwiseThreads),
+    const int64_t per_block = kPointwiseThreads * (op == 3 ? 2 : 1);
+    const dim3 grid(static_cast<unsigned>((n + per_block - 1) / per_block),
                     static_cast<unsigned>(rows < kMaxGrid ? rows : kMaxGrid));
     const auto* pa = static_cast<const uint64_t*>(a);
     const auto* pb = static_cast<const uint64_t*>(b);

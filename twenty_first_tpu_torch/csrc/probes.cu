@@ -25,6 +25,16 @@
 // independent elements per thread in registers, so each warp has four
 // chains in flight, and does not unroll the step loop, so the loop body
 // is exactly one step of four chains (what the probe reads in the SASS).
+//
+// imad_rate_kernel has no TPU counterpart: it measures how fast the integer
+// multiply-add forms that K6 and K8 (poly.cu) are built from run on this
+// card, one form a launch (probes/fold_probe.py --rates). Each thread runs
+// eight independent chains of k steps, and every multiplicand comes from
+// the chain's own state, so the pipe, not a chain's latency or a hoisted
+// product, sets the time: form 0 mad.lo.u32, 1 mul.hi.u32, 2 mad.wide.u32
+// (a 32x32 product into a 64-bit sum), 3 add.u32, 4 fma.rn.f64, 5 K6's
+// accumulator step (poly.cu mac): two 32x32 products into three words by
+// the carry chain mad.lo.cc, madc.hi.cc, addc.
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
@@ -35,6 +45,8 @@ constexpr int kStageThreads = 256;
 constexpr int kChainThreads = 256;
 constexpr int kChainPer = 4;  // independent chains per thread
 constexpr int kMaxGridY = 65535;
+constexpr int kRateThreads = 256;
+constexpr int kRateChains = 8;
 
 // One stage s (m = 2^s) over the columns of a (t, ncols) view: butterfly
 // (p, c) pairs rows a = (p >> s) * 2m + (p & (m - 1)) and a + m of column
@@ -110,7 +122,93 @@ __global__ void __launch_bounds__(kChainThreads)
   }
 }
 
+// k steps of form kForm on kRateChains chains; out[thread] folds the chains
+// together so that none is dead code.
+template <int kForm>
+__global__ void __launch_bounds__(kRateThreads)
+    imad_rate_kernel(uint64_t* out, int k) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t u[kRateChains], v[kRateChains], c[kRateChains];
+  double d[kRateChains];
+#pragma unroll
+  for (int j = 0; j < kRateChains; ++j) {
+    u[j] = t * 2654435761u + j * 40503u + 1u;
+    v[j] = u[j] ^ 0x9e3779b9u;
+    c[j] = 0;
+    d[j] = 1.0 + 1e-9 * j;
+  }
+  const uint32_t m = 0x5bd1e995u + t;
+  const double dm = 0.9999999, dc = 1e-7;
+#pragma unroll 1
+  for (int step = 0; step < k; ++step) {
+#pragma unroll
+    for (int j = 0; j < kRateChains; ++j) {
+      if constexpr (kForm == 0) {
+        asm volatile("mad.lo.u32 %0, %0, %1, %2;"
+                     : "+r"(u[j]) : "r"(m), "r"(v[j]));
+      } else if constexpr (kForm == 1) {
+        asm volatile("mul.hi.u32 %0, %0, %1;" : "+r"(u[j]) : "r"(m));
+      } else if constexpr (kForm == 2) {
+        uint64_t w = gl::join(u[j], v[j]);
+        asm volatile("{\n\t.reg .u32 lo;\n\t"
+                     "cvt.u32.u64 lo, %0;\n\t"
+                     "mad.wide.u32 %0, lo, %1, %0;\n\t}"
+                     : "+l"(w) : "r"(m));
+        u[j] = gl::lo32(w);
+        v[j] = gl::hi32(w);
+      } else if constexpr (kForm == 3) {
+        asm volatile("add.u32 %0, %0, %1;" : "+r"(u[j]) : "r"(m));
+      } else if constexpr (kForm == 4) {
+        asm volatile("fma.rn.f64 %0, %0, %1, %2;"
+                     : "+d"(d[j]) : "d"(dm), "d"(dc));
+      } else {
+        asm volatile("mad.lo.cc.u32 %0, %1, %3, %0;\n\t"
+                     "madc.hi.cc.u32 %1, %1, %3, %1;\n\t"
+                     "addc.u32 %2, %2, 0;"
+                     : "+r"(u[j]), "+r"(v[j]), "+r"(c[j]) : "r"(m));
+      }
+    }
+  }
+  uint64_t acc = 0;
+#pragma unroll
+  for (int j = 0; j < kRateChains; ++j) {
+    acc ^= gl::join(u[j], v[j] ^ c[j]) ^ static_cast<uint64_t>(d[j]);
+  }
+  out[t] = acc;
+}
+
 }  // namespace
+
+// out: blocks * 256 u64 words; k steps of form (0-5, see the top of this
+// file) on eight chains a thread.
+extern "C" int tf_imad_rate(void* out, int blocks, int k, int form,
+                            void* stream) {
+  if (blocks < 1 || k < 0 || form < 0 || form > 5) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* po = static_cast<uint64_t*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (form) {
+    case 0:
+      imad_rate_kernel<0><<<blocks, kRateThreads, 0, s>>>(po, k);
+      break;
+    case 1:
+      imad_rate_kernel<1><<<blocks, kRateThreads, 0, s>>>(po, k);
+      break;
+    case 2:
+      imad_rate_kernel<2><<<blocks, kRateThreads, 0, s>>>(po, k);
+      break;
+    case 3:
+      imad_rate_kernel<3><<<blocks, kRateThreads, 0, s>>>(po, k);
+      break;
+    case 4:
+      imad_rate_kernel<4><<<blocks, kRateThreads, 0, s>>>(po, k);
+      break;
+    default:
+      imad_rate_kernel<5><<<blocks, kRateThreads, 0, s>>>(po, k);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // in/out: (t, ncols) views with element strides (in_e, in_c), (out_e,
 // out_c); tw: the (t - 1,) stage twiddles. With bit_reverse the stage

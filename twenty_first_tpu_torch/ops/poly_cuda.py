@@ -35,10 +35,16 @@ from ..math import gf
 #: xfe x base, and the base field's inverse-or-zero
 POINTWISE_OPS = {"mul": 0, "xmul": 1, "xmul_base": 2, "inv": 3}
 
-#: K6: threads a block (8 warps), and the lanes the plan aims to fill
-#: (132 SMs x 2048 resident threads, rounded to a power of two)
+#: K6: threads a block (8 warps)
 FOLD_THREADS = 256
-FOLD_TARGET_LANES = 1 << 18
+#: K6: B, the terms a lane sums unreduced between two reductions (the
+#: kernel's kFoldBlock), and by (xfe points, xfe coefficients) the lanes the
+#: plan aims to fill: about one wave of resident lanes, fewer with xfe
+#: points, whose lanes hold more registers and set up more, the fastest
+#: that probes/fold_probe.py measured at the path's shapes on an H100
+FOLD_BLOCK = 16
+FOLD_TARGET_LANES = {(False, False): 1 << 16, (True, False): 1 << 15,
+                     (True, True): 1 << 15}
 #: K6: log2 of the shortest coefficient segment a lane folds
 FOLD_MIN_SEG_LOG2 = 7
 
@@ -218,22 +224,23 @@ batch_inversion.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def fold_plan(rows: int, n: int, m: int, seg_log2: int | None = None) -> dict:
+def fold_plan(rows: int, n: int, m: int, seg_log2: int | None = None, *,
+              xpts: bool = False, xcoef: bool = False) -> dict:
     """K6's launch plan: ``log_p`` (2^log_p points a warp, lanes p, p +
     2^log_p, ... on successive segments), ``log_l`` (a lane folds a
-    segment of 2^log_l coefficients by Horner, then scales it by
-    w^(s 2^log_l)), ``nseg`` segments a row and ``groups`` blocks of
-    ``FOLD_THREADS / 2^log_p`` segments each, whose partial sums the
-    second kernel adds. The segment is the longest that still gives
-    ``FOLD_TARGET_LANES`` lanes, but at least 2^FOLD_MIN_SEG_LOG2 (or n);
-    ``seg_log2`` forces it."""
+    segment of 2^log_l coefficients, ``FOLD_BLOCK`` terms at a time, then
+    scales it by w^(s 2^log_l)), ``nseg`` segments a row and ``groups``
+    blocks of ``FOLD_THREADS / 2^log_p`` segments each, whose partial sums
+    the second kernel adds. The segment is the longest that still gives
+    ``FOLD_TARGET_LANES`` lanes (the target of the operands' fields), but
+    at least 2^FOLD_MIN_SEG_LOG2 (or n); ``seg_log2`` forces it."""
     log_p = min(5, max(m - 1, 0).bit_length())
     pts = 1 << log_p
     tiles = -(-m // pts)
     log_n = max(n - 1, 0).bit_length()
     if seg_log2 is None:
         per_seg = max(rows * tiles * pts, 1)
-        want_seg = -(-FOLD_TARGET_LANES // per_seg)
+        want_seg = -(-FOLD_TARGET_LANES[xpts, xcoef] // per_seg)
         seg_log2 = max(log_n - max(want_seg - 1, 0).bit_length(),
                        min(FOLD_MIN_SEG_LOG2, log_n))
     seg_log2 = max(0, min(seg_log2, log_n))
@@ -294,7 +301,7 @@ def coset_extrapolate_fold(b, w, *, point_chunk: int = 64,
     b: (rows, n) base or (rows, 3, n) xfe coefficients; w: (m,) base or
     (m, 3) xfe points. Returns (rows, m) or (rows, m, 3), canonical.
     ``point_chunk`` only bounds the CPU twin's working set; ``seg_log2``
-    forces the plan's segment (``fold_plan``)."""
+    forces the plan's segment length (``fold_plan``)."""
     xpts, xcoef = _fold_kinds(b, w)
     if b.device.type == "cpu":
         return coset_extrapolate_fold_plain(b, w, point_chunk=point_chunk)
@@ -307,7 +314,7 @@ def coset_extrapolate_fold(b, w, *, point_chunk: int = 64,
         return out
     if n == 0:
         return out.zero_()
-    plan = fold_plan(rows, n, m, seg_log2)
+    plan = fold_plan(rows, n, m, seg_log2, xpts=xpts, xcoef=xcoef)
     partial = torch.empty((rows, plan["groups"], m, comps),
                           dtype=torch.int64, device=b.device)
     b, w = b.contiguous(), w.contiguous()
