@@ -24,7 +24,7 @@ set to 0 just before it and read just after:
   its inverse, batch products, convolutions at 2^22 and 2^20 (K3, K6, K7
   and K8);
 * the NTT pass probe over 2^24 elements (K3 and K4);
-* the ALU probe, chains of lazy field ops (K5).
+* the ALU probe, chains of lazy field ops (K5) in both forms.
 
 It prints one JSON line per phase. The last lines are the card's name and
 power limit (as nvidia-smi reports them), the per-kernel JSON line (for
@@ -36,7 +36,8 @@ phase also holds in-place passes, inputs full of edge words and
 ntt(post=, out=) at the step's two sizes against the twins; the step's
 profile splits the glue (every kernel not of csrc/) by kernel name. The
 polynomial batch path's outputs equal its plain twins' on the card and
-PINNED_EXTRAPOLATE reproduces through the kernels. Any failure raises: a
+PINNED_EXTRAPOLATE reproduces through the kernels; K7 is timed launch by
+launch at the path's two shapes. Any failure raises: a
 non-zero exit and no device line.
 It needs a CUDA device and refuses to run without one.
 """
@@ -171,8 +172,8 @@ K3_EDGES = (0, 1, P - 1, 1 << 32, (1 << 32) - 1)
 #: the device kernels of csrc/ by name; every other kernel of a step is glue
 OWN_KERNELS = ("tip5_permute_kernel", "merkle_commit_kernel",
                "ntt_local_pass_kernel", "coset_fold_kernel",
-               "fold_reduce_kernel", "inv_totals_kernel", "inv_scan_kernel",
-               "inv_sweep_kernel", "gf_pointwise_kernel")
+               "fold_reduce_kernel", "inv_segment_kernel",
+               "inv_zero_rows_kernel", "gf_pointwise_kernel")
 NO_LIBRARY = {"library_ms": None,
               "library": "no PyTorch call computes Goldilocks field "
                          "arithmetic, a Goldilocks NTT or Tip5"}
@@ -765,12 +766,15 @@ CONV_N, CONV_XFE_N = 1 << 22, 1 << 20
 FOLD_PRODUCTS = {(False, False): 1, (True, False): 3, (True, True): 6}
 # the fixed addition chain for x^(p-2): 63 squarings and 9 products
 INVERSE_SQUARES, INVERSE_PRODUCTS = 63, 9
-# device ms of K6 (one reduction a term) and K8's inverse (the chain on
-# canonical products) before their redesign, at the shapes timed below, on
-# an H100 80GB HBM3 at 700 W (PERF.md section 6 names the run); printed
-# beside this run's times in the kernels' phase lines, and in no other line
+# device ms of K6 (one reduction a term), K8's inverse (the chain on
+# canonical products), K7 (three launches reading x twice, one inversion a
+# row) and K5 (mul_lazy k = 112 at 2^22 in the C forms) before their
+# redesign, at the shapes timed below, on an H100 80GB HBM3 at 700 W
+# (PERF.md section 6 names the runs); printed beside this run's times in
+# the kernels' phase lines, and in no other line
 BEFORE_MS = {"k6": 0.50674, "k6_base_coeffs": 2.0735,
-             "k6_xfe_coeffs": 0.67040, "k8_inv": 0.48976}
+             "k6_xfe_coeffs": 0.67040, "k8_inv": 0.48976, "k7": 0.032368,
+             "k7_rows_8": 0.14938, "k5": 0.66418}
 
 
 def fold_bound(rows: int, n: int, m: int, xpts: bool, xcoef: bool) -> dict:
@@ -797,7 +801,7 @@ def phase_poly_batch(rng, counters) -> dict:
     from twenty_first_tpu_torch.math import gf, gf_ext, ntt, poly_batch
     from twenty_first_tpu_torch.math import gf_numpy as gfn
     from twenty_first_tpu_torch.ops import poly_cuda
-    from twenty_first_tpu_torch.probes import timing
+    from twenty_first_tpu_torch.probes import inv_probe, timing
 
     codeword = edge_words(rng, (1, POLY_BENCH_N))
     points = np.unique(rng.integers(1, P, size=2 * POLY_BENCH_POINTS,
@@ -866,7 +870,9 @@ def phase_poly_batch(rng, counters) -> dict:
 
     # K6 at forced segment lengths (one segment a lane up to one a row,
     # segments shorter than a block) and at lengths below a block; K7 at
-    # odd shapes (a part segment, more rows than a grid's y);
+    # n = 1 and around a segment, with more rows than a grid's y, and with
+    # zeros in one segment, in a row's last part segment only, and in two
+    # segments;
     # K8's broadcasts and its inverse at odd lengths and at length 1, each
     # against its twin
     checked = 0
@@ -884,11 +890,22 @@ def phase_poly_batch(rng, counters) -> dict:
                                                            seg_log2=seg),
                           want_fold)
             checked += 1
-    for rows, n in ((2, 1), (1, 2049), (70000, 3), (3, 5000)):
+    seg = poly_cuda.INV_SEGMENT
+    for rows, n, zeros in ((2, 1, ((1, 0),)), (1, 2049, ((0, 1024),)),
+                           (70000, 3, ((69999, 1),)),
+                           (3, 5000, ((2, 2500),)),
+                           (2, 2047, ((1, 2046),)), (2, 2048, ((0, 0),)),
+                           (2, seg - 1, ((1, 5),)), (2, seg, ((1, seg - 1),)),
+                           (3, seg + 1, ((1, seg),)),
+                           (3, 2 * seg + 5, ((1, 2 * seg + 4),)),
+                           (3, 3 * seg, ((0, 7), (0, 2 * seg + 9))),
+                           (4, 2049, ())):
         x = edge_field(rng, (rows, n))
         x[x == 0] = 1
-        x[-1, n // 2] = 0
-        require_equal(f"K7 ({rows}, {n})", poly_cuda.batch_inversion(x),
+        for r, j in zeros:
+            x[r, j] = 0
+        require_equal(f"K7 ({rows}, {n}) zeros at {zeros}",
+                      poly_cuda.batch_inversion(x),
                       poly_cuda.batch_inversion_plain(x))
         checked += 1
     for op, sa, sb in (("mul", (3, 5, 100), (5, 100)), ("mul", (7, 1), (1,)),
@@ -937,11 +954,15 @@ def phase_poly_batch(rng, counters) -> dict:
     dets[3, 7] = 0
     k7 = {**kernel_row(lambda: poly_cuda.batch_inversion(dets[:1]),
                        lambda: poly_cuda.batch_inversion_plain(dets[:1])),
-          **bound(16 * N, IMAD_PER_MUL * 3 * N), "shape": [1, N]}
+          **bound(16 * N, IMAD_PER_MUL * 3 * N), "shape": [1, N],
+          "by_launch": inv_probe.launch_profile(
+              lambda: poly_cuda.batch_inversion(dets[:1]))}
     k7["rows_8"] = {**kernel_row(lambda: poly_cuda.batch_inversion(dets),
                                  lambda: poly_cuda.batch_inversion_plain(dets)),
                     **bound(16 * W * N, IMAD_PER_MUL * 3 * W * N),
-                    "shape": [W, N]}
+                    "shape": [W, N],
+                    "by_launch": inv_probe.launch_profile(
+                        lambda: poly_cuda.batch_inversion(dets))}
     a8 = edge_field(rng, (W, N * E))
     b8 = edge_field(rng, (W, N * E))
     pw = poly_cuda.gf_pointwise
@@ -1006,11 +1027,12 @@ def phase_poly_batch(rng, counters) -> dict:
     for name, wrapper, row, before in (
             ("k6_coset_extrapolate_fold", "coset_extrapolate_fold", k6,
              k6_before),
-            ("k7_batch_inversion", "batch_inversion", k7, None),
+            ("k7_batch_inversion", "batch_inversion", k7,
+             {"ms": BEFORE_MS["k7"], "rows_8_ms": BEFORE_MS["k7_rows_8"]}),
             ("k8_gf_pointwise", "gf_pointwise", k8,
              {"inv_ms": BEFORE_MS["k8_inv"]})):
         emit(name, launches_on_path=launches[wrapper], **row,
-             **({} if before is None else {"before_redesign": before}))
+             before_redesign=before)
     return {"launches": launches, "k6": k6, "k7": k7, "k8": k8}
 
 
@@ -1071,7 +1093,7 @@ def phase_probe_pass(rng) -> dict:
 
 
 def phase_probe_alu(rng) -> dict:
-    """K5 against its twin, then the ALU probe's path."""
+    """K5 in each form against its twin, then the ALU probe's path."""
     from twenty_first_tpu_torch.math import gf
     from twenty_first_tpu_torch.ops import probe_cuda
     from twenty_first_tpu_torch.probes import alu_probe
@@ -1085,39 +1107,49 @@ def phase_probe_alu(rng) -> dict:
     a[0, :49], b[0, :49] = np.repeat(edges, 7), np.tile(edges, 7)
     a, b = gf.from_u64(a).cuda(), gf.from_u64(b).cuda()
     for op in probe_cuda.CHAIN_OPS:
-        for k in (1, 2, 16):
-            require_equal(f"K5 {op} k={k}", probe_cuda.gf_chain(a, b, op, k),
-                          probe_cuda.gf_chain_plain(a, b, op, k))
+        for k in (1, 2, 16, alu_probe.K_HI):
+            want = probe_cuda.gf_chain_plain(a, b, op, k)
+            for form in probe_cuda.CHAIN_FORMS:
+                require_equal(f"K5 {op} {form} k={k}",
+                              probe_cuda.gf_chain(a, b, op, k, form), want)
     results, launches = run_path((probe_cuda.gf_chain,), alu_probe.run)
     require_launched("probe_alu", launches)
-    # K5 alone at the full shape: one mul_lazy chain of K_HI steps
+    # K5 alone at the full shape: one mul_lazy chain of K_HI steps, in the
+    # carry-chain form and beside it in the C form
     fa, fb = alu_probe.operands(alu_probe.FULL_SHAPE)
     k = alu_probe.K_HI
-    err = require_equal(f"K5 mul_lazy k={k} at 2^22",
-                        probe_cuda.gf_chain(fa, fb, "mul_lazy", k),
-                        probe_cuda.gf_chain_plain(fa, fb, "mul_lazy", k))
-    ms = cuda_ms(lambda: probe_cuda.gf_chain(fa, fb, "mul_lazy", k), 10)
+    want = probe_cuda.gf_chain_plain(fa, fb, "mul_lazy", k)
+    forms_ms = {}
+    for form in probe_cuda.CHAIN_FORMS:
+        err = require_equal(f"K5 mul_lazy {form} k={k} at 2^22",
+                            probe_cuda.gf_chain(fa, fb, "mul_lazy", k, form),
+                            want)
+        forms_ms[form] = cuda_ms(
+            lambda: probe_cuda.gf_chain(fa, fb, "mul_lazy", k, form), 10)
+    ms = forms_ms["cc"]
     host_ms = wall_ms(lambda: probe_cuda.gf_chain(fa, fb, "mul_lazy", k), 10)
     plain_ms = cuda_ms(lambda: probe_cuda.gf_chain_plain(fa, fb, "mul_lazy",
                                                         k), 3)
-    sass = {r["op"]: r["sass"] for r in results}
-    emit("probe_alu", launches=launches, k5_ms=ms, k5_plain_ms=plain_ms,
-         sass=sass, per_step={f"{r['op']} {r['shape']}": {
+    sass = {f"{r['op']} {r['form']}": r["sass"] for r in results}
+    emit("probe_alu", launches=launches, k5_ms=ms, k5_forms_ms=forms_ms,
+         k5_plain_ms=plain_ms, before_redesign={"ms": BEFORE_MS["k5"]},
+         sass=sass, per_step={f"{r['op']} {r['form']} {r['shape']}": {
              key: r.get(key) for key in (
-                 "ms_per_step", "gops_per_s", "g_instructions_per_s",
-                 "share_of_dispatch_rate", "g_imad_per_s",
-                 "share_of_imad_rate",
-                 "plain_over_kernel")}
+                 "ms_per_step", "sm_cycles_per_warp_step", "gops_per_s",
+                 "g_instructions_per_s", "share_of_dispatch_rate",
+                 "g_imad_per_s", "share_of_imad_rate", "plain_over_kernel")}
              for r in results})
     n = fa.numel()
+    # the C form's issue rate, which the Tip5 issue bounds have always used
     rates = [r.get("g_instructions_per_s") for r in results
-             if r["op"] == "mul_lazy"
+             if r["op"] == "mul_lazy" and r["form"] == "c"
              and r["shape"] == list(alu_probe.FULL_SHAPE)]
     return {"launches": launches,
             "instructions_per_s": rates[0] * 1e9 if rates and isinstance(
                 rates[0], float) else None,
             "k5": {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
-                   "plain_ms": plain_ms,
+                   "plain_ms": plain_ms, "form": "cc",
+                   "forms_ms": forms_ms,
                    **bound(24 * n, IMAD_PER_MUL * k * n)}}
 
 

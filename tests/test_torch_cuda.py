@@ -16,8 +16,8 @@ from twenty_first_tpu.math.b_field_element import P
 from twenty_first_tpu.parallel import dist_merkle
 from twenty_first_tpu.tip5 import permutation as jperm
 from twenty_first_tpu_torch.math import gf, ntt
-from twenty_first_tpu_torch.ops import (ntt_cuda, probe_cuda, tip5_batch,
-                                        tip5_commit, tip5_cuda)
+from twenty_first_tpu_torch.ops import (ntt_cuda, poly_cuda, probe_cuda,
+                                        tip5_batch, tip5_commit, tip5_cuda)
 from twenty_first_tpu_torch.parallel import pipeline
 from twenty_first_tpu_torch.probes import pass_probe
 from twenty_first_tpu_torch.tip5 import permutation as tperm
@@ -213,8 +213,9 @@ def test_pass_probe_matches_jax_local_pass(cuda, variant):
     np.testing.assert_array_equal(gf.to_u64(got), want)
 
 
+@pytest.mark.parametrize("form", sorted(probe_cuda.CHAIN_FORMS))
 @pytest.mark.parametrize("op", sorted(probe_cuda.CHAIN_OPS))
-def test_k5_matches_jax_probe(cuda, op):
+def test_k5_matches_jax_probe(cuda, op, form):
     import importlib.util
     from pathlib import Path
 
@@ -230,7 +231,7 @@ def test_k5_matches_jax_probe(cuda, op):
     want = jgf.from_limbs(probe.make_xla(getattr(jgf, op), 7)(
         *jgf.to_limbs(a), *jgf.to_limbs(b)))
     got = probe_cuda.gf_chain(gf.from_u64(a).to(cuda), gf.from_u64(b).to(cuda),
-                              op, 7)
+                              op, 7, form)
     np.testing.assert_array_equal(gf.to_u64(got), want)
 
 
@@ -263,19 +264,37 @@ def test_k8_ops_match_jax(cuda):
     assert poly_cuda.gf_pointwise.launches == before + 4
 
 
-@pytest.mark.parametrize("rows,n", [(1, 1 << 12), (3, 5000)])
-def test_k7_matches_jax(cuda, rows, n):
-    """A row holding a 0 comes out all zeros, as in JAX."""
-    from twenty_first_tpu_torch.ops import poly_cuda
+@pytest.mark.parametrize("rows,n,zero_at", [
+    (1, 1 << 12, 1 << 11), (3, 5000, 2500),
+    (2, 2 * poly_cuda.INV_SEGMENT + 3, 2 * poly_cuda.INV_SEGMENT + 1)])
+def test_k7_matches_jax(cuda, rows, n, zero_at):
+    """A row holding a 0 comes out all zeros, as in JAX (the last case: a 0
+    in the row's last, part segment only). A call runs K7's two device
+    kernels and no other, each at most once (the profiler may drop an
+    event, never add one, so the counts are bounds over five calls)."""
+    from torch.profiler import ProfilerActivity, profile
 
     x = _rand((rows, n))
     x[x == 0] = 1
-    x[-1, n // 2] = 0
+    x[-1, zero_at] = 0
+    tx = gf.from_u64(x).to(cuda)
+    gf.batch_inversion(tx)
+    torch.cuda.synchronize()
     before = poly_cuda.batch_inversion.launches
-    got = gf.batch_inversion(gf.from_u64(x).to(cuda))
-    assert poly_cuda.batch_inversion.launches == before + 1
+    calls = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            got = gf.batch_inversion(tx)
+        torch.cuda.synchronize()
+    assert poly_cuda.batch_inversion.launches == before + calls
+    counts = {e.key: e.count for e in prof.key_averages() if "inv_" in e.key}
+    assert len(poly_cuda.INV_KERNELS) == 2
+    assert sorted(next((k for k in poly_cuda.INV_KERNELS if k in name), name)
+                  for name in counts) == sorted(poly_cuda.INV_KERNELS), counts
+    assert all(1 <= c <= calls for c in counts.values()), counts
     np.testing.assert_array_equal(
         gf.to_u64(got), jgf.from_limbs(jgf.batch_inversion(jgf.to_limbs(x))))
+    assert not gf.to_u64(got)[-1].any()
 
 
 @pytest.mark.parametrize("name", sorted(chip_smoke.PINNED_EXTRAPOLATE))

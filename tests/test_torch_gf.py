@@ -341,6 +341,101 @@ def test_inverse_chain_model_matches_jax():
     assert got.tolist() == [pow(int(v), P - 2, P) for v in a]
 
 
+# ---------------------------------------------------------------------------
+# K5's carry-chain forms (csrc/goldilocks.cuh), word by word as their PTX
+# computes: gl::mul_red's and gl::add_lazy_cc's 32-bit carry chains. Each
+# gives JAX's raw lazy words.
+# ---------------------------------------------------------------------------
+
+def _words(x):
+    """The 32-bit words (lo, hi) of u64 values, as int64."""
+    return (x & M32).astype(np.int64), (x >> S32).astype(np.int64)
+
+
+def _mul32(x, y):
+    """lo and hi words of x * y for 32-bit words (the product fits a u64)."""
+    p = x.astype(np.uint64) * y.astype(np.uint64)
+    return _words(p)
+
+
+def _add_cc(x, y, c=0):
+    """add.cc / addc.cc: the 32-bit sum and its carry."""
+    s = x + y + c
+    return s & 0xFFFF_FFFF, s >> 32
+
+
+def _reduce_words_model(p0, p1, p2, p3):
+    """gl::mul_red's reduction (gl::reduce128_lazy_cc's chain):
+    (p1, p0) - p3, a borrow worth 2^32 - 1, then + p2 (2^32 - 1), a carry
+    worth 2^32 - 1, each fix-up a mask from the chain's carry or borrow;
+    the model checks that no fix-up carries or borrows again."""
+    d = p0 - p3
+    r0, borrow = d & 0xFFFF_FFFF, (d < 0).astype(np.int64)
+    d = p1 - borrow
+    r1, borrow = d & 0xFFFF_FFFF, (d < 0).astype(np.int64)
+    c = borrow * 0xFFFF_FFFF  # subc.u32 c, 0, 0
+    d = r0 - c
+    r0, b = d & 0xFFFF_FFFF, (d < 0).astype(np.int64)
+    d = r1 - b
+    assert (d >= 0).all(), "the borrow fix-up borrowed again"
+    r1 = d
+    m0 = (-p2) & 0xFFFF_FFFF  # m = p2 2^32 - p2
+    m1 = p2 - (p2 != 0).astype(np.int64)
+    r0, c = _add_cc(r0, m0)
+    r1, c = _add_cc(r1, m1, c)
+    r0, c = _add_cc(r0, c * 0xFFFF_FFFF)  # neg.s32 of the carry
+    r1, c = _add_cc(r1, c)
+    assert not c.any(), "the carry fix-up carried again"
+    return r0.astype(np.uint64) | (r1.astype(np.uint64) << S32)
+
+
+def mul_red_model(a, b):
+    """gl::mul_red: the 128-bit product (p3, p2, p1, p0) by its carry chain
+    of 32-bit multiply-adds, then the reduction."""
+    a0, a1 = _words(a)
+    b0, b1 = _words(b)
+    l00, h00 = _mul32(a0, b0)
+    l01, h01 = _mul32(a0, b1)
+    l10, h10 = _mul32(a1, b0)
+    l11, h11 = _mul32(a1, b1)
+    p0 = l00
+    p1, c = _add_cc(h00, l01)  # mad.lo.cc p1, a0, b1, p1
+    p2 = h01 + c  # madc.hi p2, a0, b1, 0
+    assert (p2 <= 0xFFFF_FFFF).all()
+    p1, c = _add_cc(p1, l10)  # mad.lo.cc p1, a1, b0, p1
+    p2, c = _add_cc(p2, h10, c)  # madc.hi.cc p2, a1, b0, p2
+    p3 = h11 + c  # madc.hi p3, a1, b1, 0
+    p2, c = _add_cc(p2, l11)  # mad.lo.cc p2, a1, b1, p2
+    p3 = p3 + c  # addc p3, p3, 0
+    assert (p3 <= 0xFFFF_FFFF).all()
+    return _reduce_words_model(p0, p1, p2, p3)
+
+
+def add_lazy_cc_model(a, b):
+    """gl::add_lazy_cc: the 64-bit sum, its carry worth 2^32 - 1, and that
+    fix-up's carry worth 2^32 - 1 again."""
+    a0, a1 = _words(a)
+    b0, b1 = _words(b)
+    r0, c = _add_cc(a0, b0)
+    r1, c = _add_cc(a1, b1, c)
+    for _ in range(2):
+        r0, c2 = _add_cc(r0, c * 0xFFFF_FFFF)
+        r1, c = _add_cc(r1, c2)
+    assert not c.any(), "a third fix-up"
+    return r0.astype(np.uint64) | (r1.astype(np.uint64) << S32)
+
+
+@pytest.mark.parametrize("form,model,jax_op", [
+    ("mul_red", mul_red_model, "mul_lazy"),
+    ("add_lazy_cc", add_lazy_cc_model, "add_lazy")])
+def test_k5_form_models_match_jax(form, model, jax_op):
+    """On the edge words 0, 1, p - 1, p, 2^32 - 1, 2^32, 2^64 - 1 (every
+    pair) and random u64 words: JAX's raw lazy words, not just residues."""
+    a, b = _lazy_operands(19)
+    np.testing.assert_array_equal(model(a, b),
+                                  _jax(getattr(jgf, jax_op), a, b))
+
+
 @pytest.mark.parametrize("axis", [0, -1])
 def test_batch_inversion_matches_jax(axis):
     """Along either axis; a lane holding a 0 comes out all zeros in both."""
@@ -393,6 +488,7 @@ def test_port_never_imports_jax():
             "twenty_first_tpu_torch.probes.pass_probe",
             "twenty_first_tpu_torch.probes.alu_probe",
             "twenty_first_tpu_torch.probes.fold_probe",
+            "twenty_first_tpu_torch.probes.inv_probe",
             "twenty_first_tpu_torch._build", "chip_smoke"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' "

@@ -8,9 +8,10 @@ Beside them, numpy models of K6's and K7's schedules (csrc/poly.cu): K6's
 segments folded a block of B terms at a time, each block's products summed
 unreduced in the kernel's 32-bit words and reduced once, the blocks chained
 by w^B, each segment scaled by w^(s 2^log_l) and summed by block and by
-group as ``fold_plan`` lays them out; K7's segment products, the
-per-row inversion of those products from one inverse, and each thread's
-back-sweep from its block's exclusive prefix and suffix products. Each is
+group as ``fold_plan`` lays them out; K7's one pass over each segment
+(each thread's running products, the block's scans both ways, one
+inversion a segment, each thread's back-sweep) and its zeroing of the rows
+whose segment products hold a 0. Each is
 held against the twin and JAX, so the card's first build meets a schedule
 already shown to give the same values."""
 
@@ -447,18 +448,27 @@ def test_fold_probe_forces_the_planned_segment_for_a_lane_target():
 # ---------------------------------------------------------------------------
 
 
-def _scan_ex(t):
-    """Exclusive prefix and suffix products along the last axis."""
+def _scan_ex(t, axis=-1):
+    """Exclusive prefix and suffix products along ``axis``."""
+    t = np.moveaxis(t, axis, -1)
     pre, suf = np.ones_like(t), np.ones_like(t)
     for k in range(1, t.shape[-1]):
         pre[..., k] = gfn.mul(pre[..., k - 1], t[..., k - 1])
         j = t.shape[-1] - 1 - k
         suf[..., j] = gfn.mul(suf[..., j + 1], t[..., j + 1])
-    return pre, suf
+    return np.moveaxis(pre, -1, axis), np.moveaxis(suf, -1, axis)
 
 
 def k7_model(x):
-    """K7 on a (rows, n) host array, launch by launch."""
+    """K7 on a (rows, n) host array, as its two launches compute it: each
+    segment's block loads its elements once (thread k: elements k, k + 256,
+    ...), forms each thread's running products, scans them both ways over
+    the block (lanes of a warp, then warp 0 over the warps), inverts the
+    segment's product once, gives each warp its factor (that inverse times
+    the warp's exclusive prefix and suffix) and each thread the inverse of
+    its product, and walks back over the thread's elements; a segment whose
+    product is 0 sets its flag, and the second launch zeroes every segment
+    of a row with a flag."""
     rows, n = x.shape
     threads, per = poly_cuda.INV_THREADS, poly_cuda.INV_PER_THREAD
     seg_len = poly_cuda.INV_SEGMENT
@@ -467,52 +477,52 @@ def k7_model(x):
     pad[:, :n] = x
     v = pad.reshape(rows, nseg, per, threads)  # element s*S + e*256 + k
     pre = np.empty_like(v)
-    acc = np.ones((rows, nseg, threads), dtype=np.uint64)
-    for e in range(per):
-        acc = gfn.mul(acc, v[:, :, e])
-        pre[:, :, e] = acc
-    # launch 1: each segment's product
-    totals = np.ones((rows, nseg), dtype=np.uint64)
-    for k in range(threads):
-        totals = gfn.mul(totals, acc[:, :, k])
-    # launch 2: runs of ceil(nseg / 256) totals a thread, one inversion
-    run = -(-nseg // threads)
-    inv_totals = np.empty_like(totals)
-    for r in range(rows):
-        runs = [totals[r, j * run:(j + 1) * run] for j in range(threads)]
-        prods = np.array([int(np.prod([int(u) for u in rr], dtype=object)
-                              % P) if len(rr) else 1 for rr in runs],
-                         dtype=np.uint64)
-        p_ex, s_ex = _scan_ex(prods[None])
-        total = int(gfn.mul(p_ex[0, -1], prods[-1]))
-        inv_total = pow(total, P - 2, P) if total else 0
-        for j, rr in enumerate(runs):
-            a = int(gfn.mul(gfn.mul(np.uint64(inv_total), p_ex[0, j]),
-                            s_ex[0, j]))
-            local = np.cumprod([1] + [int(u) for u in rr], dtype=object)
-            for i in range(len(rr) - 1, -1, -1):
-                inv_totals[r, j * run + i] = a * int(local[i]) % P
-                a = a * int(rr[i]) % P
-    # launch 3: each thread's inverse, then back over its elements
-    p_ex, s_ex = _scan_ex(acc)
-    a = gfn.mul(gfn.mul(inv_totals[:, :, None], p_ex), s_ex)
+    pre[:, :, 0] = v[:, :, 0]
+    for e in range(1, per):
+        pre[:, :, e] = gfn.mul(pre[:, :, e - 1], v[:, :, e])
+    # the block scan: lanes of each warp, then the warps' products
+    t = pre[:, :, -1].reshape(rows, nseg, threads // 32, 32)
+    lane_pre, lane_suf = _scan_ex(t)
+    warp_prod = gfn.mul(lane_pre[..., -1], t[..., -1])
+    warp_pre, warp_suf = _scan_ex(warp_prod)
+    total = gfn.mul(warp_pre[..., -1], warp_prod[..., -1])
+    inv = np.array([pow(int(u), P - 2, P) for u in total.reshape(-1)],
+                   dtype=np.uint64).reshape(total.shape)  # 0 -> 0
+    factor = gfn.mul(inv[..., None], gfn.mul(warp_pre, warp_suf))
+    a = gfn.mul(gfn.mul(factor[..., None], lane_pre), lane_suf)
+    a = a.reshape(rows, nseg, threads)
     out = np.empty_like(v)
     for e in range(per - 1, -1, -1):
         out[:, :, e] = gfn.mul(a, pre[:, :, e - 1]) if e else a
         a = gfn.mul(a, v[:, :, e])
-    return out.reshape(rows, -1)[:, :n]
+    out = out.reshape(rows, -1)[:, :n]
+    # the second launch: a row with a flagged segment comes out all zeros
+    out[(total == 0).any(axis=1)] = 0
+    return out
 
 
-@pytest.mark.parametrize("rows,n,against_jax", [
-    (3, 5000, True), (2, 2048, False), (1, 1, False), (4, 300, False),
-    (1, 3 * 2048 + 1, False)])
-def test_k7_schedule_model_matches_twin_and_jax(rows, n, against_jax):
-    """Rows of one and several segments, a row holding a 0 (all zeros out);
-    the twin is held against JAX at every shape by test_torch_gf.py."""
+SEG = poly_cuda.INV_SEGMENT
+
+
+@pytest.mark.parametrize("rows,n,zeros,against_jax", [
+    (3, 5000, None, True), (2, 2048, None, False), (1, 1, None, False),
+    (4, 300, None, False), (1, 3 * 2048 + 1, None, False),
+    # a 0 in a row's last, part segment only; 0s in two segments
+    (2, 2 * SEG + 5, ((1, 2 * SEG + 3),), True),
+    (3, 3 * SEG, ((1, 9), (1, 2 * SEG + 100)), True),
+    # n around one segment
+    (2, SEG - 1, ((1, SEG - 2),), False), (2, SEG, ((0, SEG - 1),), False),
+    (2, SEG + 1, ((0, SEG),), False)])
+def test_k7_schedule_model_matches_twin_and_jax(rows, n, zeros, against_jax):
+    """Rows of one and several segments, rows holding a 0 (all zeros out;
+    by default one at (1, n // 3) where there are two rows); the twin is
+    held against JAX at every shape by test_torch_gf.py."""
     x = _values(20 + n, (rows, n))
     x[x == 0] = 3
-    if rows > 1:
-        x[1, n // 3] = 0
+    if zeros is None:
+        zeros = ((1, n // 3),) if rows > 1 else ()
+    for r, j in zeros:
+        x[r, j] = 0
     got = k7_model(x)
     np.testing.assert_array_equal(
         got, gf.to_u64(poly_cuda.batch_inversion(gf.from_u64(x))))
@@ -521,6 +531,9 @@ def test_k7_schedule_model_matches_twin_and_jax(rows, n, against_jax):
 
         np.testing.assert_array_equal(
             got, jgf.from_limbs(jgf.batch_inversion(jgf.to_limbs(x))))
-    if rows > 1:
-        assert not got[1].any()
-    assert (gfn.mul(got[0], x[0]) == 1).all()
+    zero_rows = {r for r, _ in zeros}
+    for r in range(rows):
+        if r in zero_rows:
+            assert not got[r].any()
+        else:
+            assert (gfn.mul(got[r], x[r]) == 1).all()

@@ -110,8 +110,9 @@ def test_gf_chain_plain_matches_the_jax_probe(op, k):
     np.testing.assert_array_equal(
         gf.to_u64(probe_cuda.gf_chain_plain(ta, tb, op, k)), want)
     launches = probe_cuda.gf_chain.launches
-    np.testing.assert_array_equal(
-        gf.to_u64(probe_cuda.gf_chain(ta, tb, op, k)), want)
+    for form in probe_cuda.CHAIN_FORMS:
+        np.testing.assert_array_equal(
+            gf.to_u64(probe_cuda.gf_chain(ta, tb, op, k, form)), want)
     assert probe_cuda.gf_chain.launches == launches  # no kernel on a CPU
 
 
@@ -123,6 +124,8 @@ def test_gf_chain_rejects_bad_input():
         probe_cuda.gf_chain(a, a, "mul_lazy", -1)
     with pytest.raises(ValueError):
         probe_cuda.gf_chain(a, a[:4], "mul_lazy", 1)
+    with pytest.raises(ValueError):
+        probe_cuda.gf_chain(a, a, "mul_lazy", 1, "fast")
     assert torch.equal(probe_cuda.gf_chain(a, a, "add_lazy", 0), a)
 
 
@@ -143,6 +146,29 @@ def test_alu_probe_reads_the_step_loop_from_sass():
                                                   "@P0"]
     assert alu_probe.loop_body(sass.replace("`(.L_x_0)", "0x10")
                                .splitlines()) == body[:2] + ["@P0 BRA 0x10"]
+
+
+def test_alu_probe_reads_each_forms_step_loop(monkeypatch):
+    """K5's instantiations by (op, form) in cuobjdump's mangled names: each
+    form's own step loop is read, one op being a quarter of it."""
+    def sass(n_insns):
+        body = [f"        /*{16 * i:04x}*/   IMAD.WIDE.U32 R2, R4, R5, RZ ;"
+                for i in range(1, n_insns)]
+        return (["        /*0000*/   LDC R1, c[0x0][0x28] ;", ".L_x_0:"]
+                + body + [f"        /*{16 * n_insns:04x}*/   @P0 BRA "
+                          "`(.L_x_0) ;"])
+
+    forms = list(alu_probe.KERNEL_TAG)
+    assert len(forms) == 4  # both ops in both forms
+    kernels = {f"_ZN12_GLOBAL__N_115{alu_probe.KERNEL_TAG[f]}vPKmS2_Pmli":
+               sass(4 * (1 + i)) for i, f in enumerate(forms)}
+    monkeypatch.setattr(alu_probe._build, "sass", lambda library=None:
+                        kernels)
+    for i, (op, form) in enumerate(forms):
+        got = alu_probe.sass_per_op(op, form)
+        assert alu_probe.KERNEL_TAG[op, form] in got["kernel"]
+        assert got["instructions_per_op"] == 1 + i
+        assert got["imad_per_op"] == (4 * (1 + i) - 1) / 4
 
 
 def test_sass_per_perm_reads_the_innermost_round_loop():

@@ -49,14 +49,14 @@ _SIGNATURES = {
     # in, out, log_t, stage, ncols, in strides (e, c), out strides (e, c),
     # tw, bit_reverse, stream
     "tf_ntt_stage": (_VP, _VP, _I, _I, _LL, _LL, _LL, _LL, _LL, _VP, _I, _VP),
-    # a, b, out, n, k, op, stream
-    "tf_gf_chain": (_VP, _VP, _VP, _LL, _I, _I, _VP),
+    # a, b, out, n, k, op, form, stream
+    "tf_gf_chain": (_VP, _VP, _VP, _LL, _I, _I, _I, _VP),
     # out, blocks, k, form, stream
     "tf_imad_rate": (_VP, _I, _I, _I, _VP),
     # a, b, out, rows, n, a_row, b_row, out_row, op, stream
     "tf_gf_pointwise": (_VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _I, _VP),
-    # x, out, rows, n, totals, scratch, stream
-    "tf_batch_inversion": (_VP, _VP, _LL, _LL, _VP, _VP, _VP),
+    # x, out, rows, n, zero flags, stream
+    "tf_batch_inversion": (_VP, _VP, _LL, _LL, _VP, _VP),
     # b, w, partial, out, rows, n, m, log_p, log_l, nseg, groups, xpts,
     # xcoef, stream
     "tf_coset_fold": (_VP, _VP, _VP, _VP, _LL, _LL, _I, _I, _I, _LL, _I, _I,

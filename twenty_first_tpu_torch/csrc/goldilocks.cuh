@@ -88,9 +88,10 @@ __device__ __forceinline__ uint64_t join(uint32_t lo, uint32_t hi) {
 // The carry-chain forms below give the same representatives as the C forms
 // above (and as twenty_first_tpu/math/gf.py's lazy forms) with no compares
 // or selects: each EPSILON fix-up is the carry or borrow of a 32-bit chain
-// turned into a 0 / 2^32 - 1 mask. K1-K3 use them; K5 (probes.cu) times
-// the C forms, and its rates are the yardstick earlier measurements used.
-// sqr_red alone gives a representative of its own (K8's inverse chain).
+// turned into a 0 / 2^32 - 1 mask. K1-K3 and K6-K8 use them; K5
+// (probes.cu) times them beside the C forms, the yardstick of earlier
+// measurements. sqr_red alone gives a representative of its own (K8's
+// inverse chain).
 
 // a * b for any u64 residues, a lazy residue out: the 128-bit product
 // p = (p3, p2, p1, p0) as a carry chain of 32-bit multiply-adds, then

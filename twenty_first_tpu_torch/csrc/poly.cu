@@ -28,20 +28,29 @@
 // shared memory; a second kernel adds the blocks'. The plan
 // (ops/poly_cuda.py::fold_plan) picks the segment length.
 //
-// K7 inv_totals_kernel, inv_scan_kernel, inv_sweep_kernel <-
+// K7 inv_segment_kernel, inv_zero_rows_kernel <-
 // twenty_first_tpu/math/gf.py::batch_inversion (:503), which JAX computes
 // as two log-depth Hillis-Steele prefix-product scans. What bounds it: the
-// bytes (each element read and its inverse written) against four products
-// an element. The design is Montgomery's trick on three levels, one field
-// inversion a row: the inverse of a group's product times the product of
-// the other members of its group is a member's inverse. Launch 1 takes the
-// product of each 2048-element segment (a block: 8 elements a thread, a
-// scan over the block); launch 2 turns each row's segment products into
-// their inverses (one inversion of the row's product, scans both ways);
-// launch 3 gives every thread the inverse of its elements' product (the
-// segment's inverse times the block's exclusive prefix and suffix) and
-// walks its elements backwards. A 0 anywhere in a row makes the row's
-// product 0 and its inverse 0, so the row comes out all zeros, as in JAX.
+// bytes, each element read once and its inverse written once, against
+// three products an element. The design is Montgomery's trick in one pass
+// over the input, one field inversion a segment: a block copies its
+// 4096-element segment of a row into shared memory (cp.async: no register
+// holds a word in flight), each thread forms the running products of its
+// 16 elements in registers, and the block takes the segment's product by
+// one scan both ways (warp shuffles, then warp 0 over the warps). Warp 0
+// inverts that product (K8's lazy chain), so every thread gets the
+// inverse of its own elements' product as the segment's inverse times its
+// exclusive prefix and suffix over the block, and walks its elements
+// backwards, writing each inverse once. The segment's serial stages (the
+// scans' barriers, the 72-product inversion) are latency: four resident
+// blocks an SM, of 4096 elements each, keep the SM busy through them.
+// Products are lazy carry chains (gl::mul_red), canonicalised on the way
+// out. A 0 makes its segment's product 0 and the segment's inverses 0; the
+// block records it in a flag of its (row, segment), and the second launch
+// zeroes every row whose flags hold one (a block of a row without a 0
+// reads the row's flags and exits), so a row holding a 0 comes out all
+// zeros, as in JAX. The second launch is a programmatic dependent of the
+// first (Hopper's griddepcontrol), so its launch overlaps the first's end.
 //
 // K8 gf_pointwise_kernel <- the elementwise ops of the path:
 // twenty_first_tpu/math/gf.py::mul, gf_ext.py::mul (:71) and ::mul_base
@@ -66,9 +75,15 @@ constexpr int kPointwiseThreads = 256;
 constexpr int kFoldThreads = 256;
 // K6's block: the terms a lane sums unreduced between two reductions
 constexpr int kFoldBlock = 16;
+// K7: a segment (one block, one field inversion) is kInvThreads x
+// kInvPerThread elements, staged in shared memory (32 KB); four blocks an SM
+// stay resident (at most 64 registers a thread); the zero-row launch runs
+// kInvZeroBlocks blocks a row
 constexpr int kInvThreads = 256;
-constexpr int kInvPerThread = 8;
+constexpr int kInvPerThread = 16;
 constexpr int kInvSegment = kInvThreads * kInvPerThread;
+constexpr int kInvMinBlocks = 4;
+constexpr int kInvZeroBlocks = 64;
 constexpr int kMaxGrid = 65535;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -203,17 +218,17 @@ __global__ void __launch_bounds__(kPointwiseThreads)
 // K7
 // ---------------------------------------------------------------------------
 
-// The exclusive prefix and suffix products of each thread's t over the
-// block, and the block's product: warp shuffles both ways, then warp 0
-// over the warps' products. Every thread of the block calls it.
+// The inverse of each thread's t, from the inverse of the block's product:
+// the exclusive prefix and suffix products of t over the block (warp
+// shuffles both ways, then warp 0 over the warps' products) times that
+// inverse, which warp 0 computes once, with each warp's factor. zero: the
+// block's product is 0. Every thread of the block calls it.
 template <int kThreads>
-__device__ __forceinline__ void block_scan(uint64_t t, uint64_t& pre_ex,
-                                           uint64_t& suf_ex,
-                                           uint64_t& total) {
+__device__ __forceinline__ uint64_t thread_inverse(uint64_t t, bool& zero) {
   static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps");
   constexpr int kWarps = kThreads / 32;
-  __shared__ uint64_t warp_prod[kWarps], warp_pre[kWarps], warp_suf[kWarps];
-  __shared__ uint64_t block_prod;
+  __shared__ uint64_t warp_prod[kWarps], warp_factor[kWarps];
+  __shared__ bool block_zero;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   uint64_t pre = t, suf = t;
@@ -221,120 +236,120 @@ __device__ __forceinline__ void block_scan(uint64_t t, uint64_t& pre_ex,
   for (int d = 1; d < 32; d <<= 1) {
     const uint64_t up = __shfl_up_sync(kFull, pre, d);
     const uint64_t down = __shfl_down_sync(kFull, suf, d);
-    if (lane >= d) pre = gl::mul(pre, up);
-    if (lane + d < 32) suf = gl::mul(suf, down);
+    if (lane >= d) pre = gl::mul_red(pre, up);
+    if (lane + d < 32) suf = gl::mul_red(suf, down);
   }
   if (lane == 31) warp_prod[warp] = pre;
   __syncthreads();
   if (warp == 0) {
+    // lanes past the last warp hold 1, so the scans stop at kWarps
     uint64_t p = lane < kWarps ? warp_prod[lane] : 1;
     uint64_t s = p;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
+    for (int d = 1; d < kWarps; d <<= 1) {
       const uint64_t up = __shfl_up_sync(kFull, p, d);
       const uint64_t down = __shfl_down_sync(kFull, s, d);
-      if (lane >= d) p = gl::mul(p, up);
-      if (lane + d < 32) s = gl::mul(s, down);
+      if (lane >= d) p = gl::mul_red(p, up);
+      if (lane + d < 32) s = gl::mul_red(s, down);
     }
-    const uint64_t p_ex = __shfl_up_sync(kFull, p, 1);
-    const uint64_t s_ex = __shfl_down_sync(kFull, s, 1);
+    uint64_t p_ex = __shfl_up_sync(kFull, p, 1);
+    uint64_t s_ex = __shfl_down_sync(kFull, s, 1);
+    if (lane == 0) p_ex = 1;
+    if (lane == kWarps - 1) s_ex = 1;
+    const uint64_t total = __shfl_sync(kFull, s, 0);
+    const uint64_t inv = inverse_or_zero(total);  // every lane: no divergence
     if (lane < kWarps) {
-      warp_pre[lane] = lane == 0 ? 1 : p_ex;
-      warp_suf[lane] = lane == 31 ? 1 : s_ex;
+      warp_factor[lane] = gl::mul_red(inv, gl::mul_red(p_ex, s_ex));
     }
-    if (lane == 0) block_prod = s;
+    if (lane == 0) block_zero = gl::canon(total) == 0;
   }
   __syncthreads();
   uint64_t p_ex = __shfl_up_sync(kFull, pre, 1);
   uint64_t s_ex = __shfl_down_sync(kFull, suf, 1);
   if (lane == 0) p_ex = 1;
   if (lane == 31) s_ex = 1;
-  pre_ex = gl::mul(warp_pre[warp], p_ex);
-  suf_ex = gl::mul(warp_suf[warp], s_ex);
-  total = block_prod;
-  __syncthreads();  // the shared words are written again by the next call
+  const uint64_t inv_t = gl::mul_red(gl::mul_red(warp_factor[warp], p_ex),
+                                     s_ex);
+  zero = block_zero;
+  __syncthreads();  // the shared words are written again by the next row
+  return inv_t;
 }
 
-// totals[r, s]: the product of segment s of row r (thread k takes
-// elements k, k + 256, ..., of the segment; a missing element is 1).
-__global__ void __launch_bounds__(kInvThreads)
-    inv_totals_kernel(const uint64_t* __restrict__ x,
-                      uint64_t* __restrict__ totals, int64_t rows, int64_t n,
-                      int64_t nseg) {
-  const int64_t seg = blockIdx.x;
-  const int64_t left = n - seg * kInvSegment;
-  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
-    const uint64_t* px = x + r * n + seg * kInvSegment;
-    uint64_t t = 1;
-#pragma unroll
-    for (int e = 0; e < kInvPerThread; ++e) {
-      const int64_t i = e * kInvThreads + threadIdx.x;
-      if (i < left) t = gl::mul(t, px[i]);
-    }
-    uint64_t pre_ex, suf_ex, total;
-    block_scan<kInvThreads>(t, pre_ex, suf_ex, total);
-    if (threadIdx.x == 0) totals[r * nseg + seg] = total;
-  }
+// cp.async of one u64 word from device memory into shared memory: the copy
+// holds no register while it is in flight.
+__device__ __forceinline__ void cp_async8(uint64_t* smem, const uint64_t* g) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(addr),
+               "l"(g));
 }
 
-// totals[r, :] -> their inverses, from one inversion of the row's product:
-// thread k takes a run of consecutive totals, keeps their running product
-// in scratch, and walks back from the inverse of its run's product.
-__global__ void __launch_bounds__(kInvThreads)
-    inv_scan_kernel(uint64_t* __restrict__ totals,
-                    uint64_t* __restrict__ scratch, int64_t rows,
-                    int64_t nseg) {
-  const int64_t run = (nseg + kInvThreads - 1) / kInvThreads;
-  const int64_t lo = threadIdx.x * run;
-  const int64_t hi = lo + run < nseg ? lo + run : nseg;
-  for (int64_t r = blockIdx.x; r < rows; r += gridDim.x) {
-    uint64_t* t = totals + r * nseg;
-    uint64_t* pre = scratch + r * nseg;
-    uint64_t acc = 1;
-    for (int64_t i = lo; i < hi; ++i) {
-      acc = gl::mul(acc, t[i]);
-      pre[i] = acc;
-    }
-    uint64_t pre_ex, suf_ex, total;
-    block_scan<kInvThreads>(acc, pre_ex, suf_ex, total);
-    uint64_t a = gl::mul(gl::mul(inverse_or_zero(total), pre_ex), suf_ex);
-    for (int64_t i = hi - 1; i >= lo; --i) {
-      const uint64_t before = i > lo ? pre[i - 1] : 1;
-      const uint64_t v = t[i];
-      t[i] = gl::mul(a, before);
-      a = gl::mul(a, v);
-    }
-  }
-}
-
-// out[r, segment s]: each element's inverse, from inv_totals[r, s].
-__global__ void __launch_bounds__(kInvThreads)
-    inv_sweep_kernel(const uint64_t* __restrict__ x,
-                     uint64_t* __restrict__ out,
-                     const uint64_t* __restrict__ inv_totals, int64_t rows,
-                     int64_t n, int64_t nseg) {
+// out[r, segment s]: each element's inverse, reading x once (thread k
+// holds elements k, k + 256, ..., of the segment, copied into shared
+// memory, its running products in registers; a missing element is 1);
+// zero[r, s]: the segment's product is 0.
+__global__ void __launch_bounds__(kInvThreads, kInvMinBlocks)
+    inv_segment_kernel(const uint64_t* __restrict__ x,
+                       uint64_t* __restrict__ out,
+                       uint8_t* __restrict__ zero, int64_t rows, int64_t n,
+                       int64_t nseg) {
+  __shared__ uint64_t sv[kInvSegment];
   const int64_t seg = blockIdx.x;
   const int64_t left = n - seg * kInvSegment;
   for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
     const int64_t base = r * n + seg * kInvSegment;
-    uint64_t v[kInvPerThread], pre[kInvPerThread];
-    uint64_t acc = 1;
 #pragma unroll
     for (int e = 0; e < kInvPerThread; ++e) {
-      const int64_t i = e * kInvThreads + threadIdx.x;
-      v[e] = i < left ? x[base + i] : 1;
-      acc = gl::mul(acc, v[e]);
-      pre[e] = acc;
+      const int i = e * kInvThreads + threadIdx.x;
+      if (i < left) {
+        cp_async8(&sv[i], x + base + i);
+      } else {
+        sv[i] = 1;
+      }
     }
-    uint64_t pre_ex, suf_ex, total;
-    block_scan<kInvThreads>(acc, pre_ex, suf_ex, total);
+    // a thread reads only the words it copied: no barrier
+    asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;\n" ::
+                     : "memory");
+    uint64_t pre[kInvPerThread];
+    pre[0] = sv[threadIdx.x];
+#pragma unroll
+    for (int e = 1; e < kInvPerThread; ++e) {
+      pre[e] = gl::mul_red(pre[e - 1], sv[e * kInvThreads + threadIdx.x]);
+    }
+    bool zero_seg;
     // the inverse of this thread's product, then back over its elements
-    uint64_t a = gl::mul(gl::mul(inv_totals[r * nseg + seg], pre_ex), suf_ex);
+    uint64_t a = thread_inverse<kInvThreads>(pre[kInvPerThread - 1], zero_seg);
 #pragma unroll
     for (int e = kInvPerThread - 1; e >= 0; --e) {
-      const int64_t i = e * kInvThreads + threadIdx.x;
-      if (i < left) out[base + i] = gl::mul(a, e > 0 ? pre[e - 1] : 1);
-      a = gl::mul(a, v[e]);
+      const int i = e * kInvThreads + threadIdx.x;
+      if (i < left) {
+        out[base + i] = gl::canon(e > 0 ? gl::mul_red(a, pre[e - 1]) : a);
+      }
+      if (e > 0) a = gl::mul_red(a, sv[i]);
+    }
+    if (threadIdx.x == 0) zero[r * nseg + seg] = zero_seg;
+  }
+}
+
+// Every row whose flags hold a 0 -> zeros, kInvZeroBlocks blocks a row (a
+// block of a row without a 0 reads the row's flags and exits). Launched as
+// a programmatic dependent of inv_segment_kernel, so that its launch
+// overlaps that kernel's end; griddepcontrol.wait holds it until the flags
+// are written.
+__global__ void __launch_bounds__(kInvThreads)
+    inv_zero_rows_kernel(uint64_t* __restrict__ out,
+                         const uint8_t* __restrict__ zero, int64_t rows,
+                         int64_t n, int64_t nseg) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
+    int any = 0;
+    for (int64_t s = threadIdx.x; s < nseg; s += kInvThreads) {
+      any |= zero[r * nseg + s];
+    }
+    if (!__syncthreads_or(any)) continue;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * kInvThreads +
+                     threadIdx.x;
+         i < n; i += static_cast<int64_t>(gridDim.x) * kInvThreads) {
+      out[r * n + i] = 0;
     }
   }
 }
@@ -655,29 +670,41 @@ extern "C" int tf_gf_pointwise(const void* a, const void* b, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, out: (rows, n) contiguous; totals, scratch: (rows, nseg) with nseg =
-// ceil(n / 2048). out gets every element's inverse (a row with a 0: zeros).
+// x, out: (rows, n) contiguous; zero: (rows, nseg) flags with nseg =
+// ceil(n / 4096), written before they are read (no initial value). out
+// gets every element's inverse (a row with a 0: zeros).
 extern "C" int tf_batch_inversion(const void* x, void* out, long long rows,
-                                  long long n, void* totals, void* scratch,
-                                  void* stream) {
+                                  long long n, void* zero, void* stream) {
   if (rows < 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0 || n == 0) return static_cast<int>(cudaGetLastError());
   const long long nseg = (n + kInvSegment - 1) / kInvSegment;
   if (nseg > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const unsigned ry = static_cast<unsigned>(rows < kMaxGrid ? rows : kMaxGrid);
-  const dim3 grid(static_cast<unsigned>(nseg), ry);
-  const auto* px = static_cast<const uint64_t*>(x);
-  auto* pt = static_cast<uint64_t*>(totals);
-  inv_totals_kernel<<<grid, kInvThreads, 0, s>>>(px, pt, rows, n, nseg);
+  auto* po = static_cast<uint64_t*>(out);
+  auto* pz = static_cast<uint8_t*>(zero);
+  inv_segment_kernel<<<dim3(static_cast<unsigned>(nseg), ry), kInvThreads, 0,
+                       s>>>(static_cast<const uint64_t*>(x), po, pz, rows, n,
+                            nseg);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  inv_scan_kernel<<<ry, kInvThreads, 0, s>>>(
-      pt, static_cast<uint64_t*>(scratch), rows, nseg);
-  err = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(nseg < kInvZeroBlocks
+                                               ? nseg
+                                               : kInvZeroBlocks),
+                     ry);
+  cfg.blockDim = dim3(kInvThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, inv_zero_rows_kernel, po,
+                           static_cast<const uint8_t*>(pz),
+                           static_cast<int64_t>(rows), static_cast<int64_t>(n),
+                           static_cast<int64_t>(nseg));
   if (err != cudaSuccess) return static_cast<int>(err);
-  inv_sweep_kernel<<<grid, kInvThreads, 0, s>>>(
-      px, static_cast<uint64_t*>(out), pt, rows, n, nseg);
   return static_cast<int>(cudaGetLastError());
 }
 

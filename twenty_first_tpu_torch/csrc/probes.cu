@@ -25,6 +25,11 @@
 // independent elements per thread in registers, so each warp has four
 // chains in flight, and does not unroll the step loop, so the loop body
 // is exactly one step of four chains (what the probe reads in the SASS).
+// The op runs in one of two forms, which give the same words, so that the
+// probe reads what each costs on this card: 0, the carry chains the
+// library's kernels run (gl::mul_red, gl::add_lazy_cc); 1, the C forms
+// with compares and selects (gl::mul_lazy, gl::add_lazy), the yardstick
+// of earlier readings.
 //
 // imad_rate_kernel has no TPU counterpart: it measures how fast the integer
 // multiply-add forms that K6 and K8 (poly.cu) are built from run on this
@@ -82,10 +87,14 @@ __global__ void __launch_bounds__(kStageThreads)
   }
 }
 
-template <int kOp>
+template <int kOp, int kForm>
 __device__ __forceinline__ uint64_t chain_op(uint64_t o, uint64_t b) {
-  if constexpr (kOp == 0) {
+  if constexpr (kOp == 0 && kForm == 0) {
+    return gl::mul_red(o, b);
+  } else if constexpr (kOp == 0) {
     return gl::mul_lazy(o, b);
+  } else if constexpr (kForm == 0) {
+    return gl::add_lazy_cc(o, b);
   } else {
     return gl::add_lazy(o, b);
   }
@@ -93,7 +102,7 @@ __device__ __forceinline__ uint64_t chain_op(uint64_t o, uint64_t b) {
 
 // out[i] = the k-step chain from a[i] with operand b[i]; thread x holds
 // elements x, x + T, x + 2T, x + 3T for T the number of threads.
-template <int kOp>
+template <int kOp, int kForm>
 __global__ void __launch_bounds__(kChainThreads)
     gf_chain_kernel(const uint64_t* a, const uint64_t* b, uint64_t* out,
                     int64_t n, int k) {
@@ -111,7 +120,7 @@ __global__ void __launch_bounds__(kChainThreads)
   for (int step = 0; step < k; ++step) {
 #pragma unroll
     for (int j = 0; j < kChainPer; ++j) {
-      const uint64_t x = chain_op<kOp>(o[j], w[j]);
+      const uint64_t x = chain_op<kOp, kForm>(o[j], w[j]);
       o[j] = (x << 32) | (x >> 32);  // the limb swap
     }
   }
@@ -237,10 +246,12 @@ extern "C" int tf_ntt_stage(const void* in, void* out, int log_t, int stage,
   return static_cast<int>(cudaGetLastError());
 }
 
-// op: 0 mul_lazy, 1 add_lazy; a, b, out: n contiguous u64 words.
+// op: 0 mul_lazy, 1 add_lazy; form: 0 carry chains, 1 C forms; a, b, out:
+// n contiguous u64 words.
 extern "C" int tf_gf_chain(const void* a, const void* b, void* out,
-                           long long n, int k, int op, void* stream) {
-  if (op < 0 || op > 1 || k < 0 || n < 0) {
+                           long long n, int k, int op, int form,
+                           void* stream) {
+  if (op < 0 || op > 1 || form < 0 || form > 1 || k < 0 || n < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
@@ -252,10 +263,23 @@ extern "C" int tf_gf_chain(const void* a, const void* b, void* out,
     const auto* pb = static_cast<const uint64_t*>(b);
     auto* po = static_cast<uint64_t*>(out);
     const auto s = static_cast<cudaStream_t>(stream);
-    if (op == 0) {
-      gf_chain_kernel<0><<<blocks, kChainThreads, 0, s>>>(pa, pb, po, n, k);
-    } else {
-      gf_chain_kernel<1><<<blocks, kChainThreads, 0, s>>>(pa, pb, po, n, k);
+    switch (op * 2 + form) {
+      case 0:
+        gf_chain_kernel<0, 0><<<blocks, kChainThreads, 0, s>>>(pa, pb, po, n,
+                                                               k);
+        break;
+      case 1:
+        gf_chain_kernel<0, 1><<<blocks, kChainThreads, 0, s>>>(pa, pb, po, n,
+                                                               k);
+        break;
+      case 2:
+        gf_chain_kernel<1, 0><<<blocks, kChainThreads, 0, s>>>(pa, pb, po, n,
+                                                               k);
+        break;
+      default:
+        gf_chain_kernel<1, 1><<<blocks, kChainThreads, 0, s>>>(pa, pb, po, n,
+                                                               k);
+        break;
     }
   }
   return static_cast<int>(cudaGetLastError());

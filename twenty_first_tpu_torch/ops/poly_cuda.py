@@ -19,7 +19,7 @@ dozens of launches per field product.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain twin. Each wrapper counts its calls that reach the card in
-``<wrapper>.launches`` (K6 runs two device kernels per call, K7 three).
+``<wrapper>.launches`` (K6 and K7 run two device kernels per call).
 """
 
 from __future__ import annotations
@@ -48,11 +48,13 @@ FOLD_TARGET_LANES = {(False, False): 1 << 16, (True, False): 1 << 15,
 #: K6: log2 of the shortest coefficient segment a lane folds
 FOLD_MIN_SEG_LOG2 = 7
 
-#: K7: threads a block and elements a thread in the segment kernels, so a
-#: segment (one block's product) is 2048 elements
+#: K7: threads a block and elements a thread, so a segment (one block's
+#: product, and one field inversion) is 4096 elements
 INV_THREADS = 256
-INV_PER_THREAD = 8
+INV_PER_THREAD = 16
 INV_SEGMENT = INV_THREADS * INV_PER_THREAD
+#: K7's device kernels a call: the segment pass, then the zero-row fix
+INV_KERNELS = ("inv_segment_kernel", "inv_zero_rows_kernel")
 
 _MAX_GRID_Y = 65535
 
@@ -185,13 +187,13 @@ def batch_inversion_plain(x):
 
 def batch_inversion(x):
     """K7: the inverse of every element of a (rows, n) carrier, one field
-    inversion a row; a row holding a 0 comes out all zeros. A new (rows, n)
-    tensor.
+    inversion a 4096-element segment; a row holding a 0 comes out all
+    zeros. A new (rows, n) tensor.
 
-    Three launches: each 2048-element segment's product, then per row the
-    segment products' inverses from one inversion (a scan both ways), then
-    each segment's elements from its inverse (a scan both ways over the
-    block's threads and a back-sweep over each thread's elements)."""
+    Two launches: one pass over x, in which each segment's block scans its
+    elements' products both ways, inverts the segment's product and writes
+    every inverse, flagging a segment whose product is 0; then the flagged
+    rows' segments are zeroed (a row without a 0 only reads its flags)."""
     if x.dim() != 2 or x.dtype != torch.int64:
         raise ValueError(f"x must be a (rows, n) int64 tensor, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -203,14 +205,12 @@ def batch_inversion(x):
     if x.numel() == 0:
         return out
     x = x.contiguous()
-    nseg = -(-n // INV_SEGMENT)
-    totals = torch.empty((rows, nseg), dtype=torch.int64, device=x.device)
-    scratch = torch.empty_like(totals)
+    zero = torch.empty((rows, -(-n // INV_SEGMENT)), dtype=torch.uint8,
+                       device=x.device)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.tf_batch_inversion(x.data_ptr(), out.data_ptr(), rows, n,
-                                     totals.data_ptr(), scratch.data_ptr(),
-                                     _build.stream_of(x))
+                                     zero.data_ptr(), _build.stream_of(x))
         _build.check(err, "batch_inversion")
     batch_inversion.launches += 1
     return out

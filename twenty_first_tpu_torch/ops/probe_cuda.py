@@ -8,7 +8,8 @@ The counterparts of the Pallas probes in ``scripts/``:
   a pass (``probes/pass_probe.py``);
 * K5 ``gf_chain`` (replaces ``pallas_alu_probe.py::make_pallas``, :38/:39):
   k steps of ``o = op(o, b)`` then the limb swap, op ``mul_lazy`` or
-  ``add_lazy``, returning the raw lazy words (``probes/alu_probe.py``).
+  ``add_lazy``, returning the raw lazy words (``probes/alu_probe.py``), in
+  one of the forms of ``CHAIN_FORMS``, which give the same words.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 twin. Each wrapper counts its launches in ``<wrapper>.launches``.
@@ -24,6 +25,10 @@ from .ntt_cuda import bit_reverse_permutation
 
 #: K5's ops, by the name of their ``math/gf.py`` form -> the kernel's code.
 CHAIN_OPS = {"mul_lazy": 0, "add_lazy": 1}
+#: K5's forms of an op -> the kernel's code: "cc" the carry chains the
+#: library's kernels run (``gl::mul_red``, ``gl::add_lazy_cc``), "c" the C
+#: forms with compares and selects (``gl::mul_lazy``, ``gl::add_lazy``)
+CHAIN_FORMS = {"cc": 0, "c": 1}
 MAX_LOG_T = 30
 
 
@@ -121,9 +126,12 @@ def _swap_limbs(x):
     return (x << 32) | gf._shr(x, 32)
 
 
-def _check_chain(a, b, op: str, k: int):
+def _check_chain(a, b, op: str, k: int, form: str = "cc"):
     if op not in CHAIN_OPS:
         raise ValueError(f"op must be one of {sorted(CHAIN_OPS)}, got {op!r}")
+    if form not in CHAIN_FORMS:
+        raise ValueError(f"form must be one of {sorted(CHAIN_FORMS)}, got "
+                         f"{form!r}")
     if k < 0:
         raise ValueError(f"k must be >= 0, got {k}")
     if (a.dtype != torch.int64 or b.dtype != torch.int64
@@ -144,10 +152,11 @@ def gf_chain_plain(a, b, op: str, k: int):
     return o.clone() if k == 0 else o
 
 
-def gf_chain(a, b, op: str, k: int):
+def gf_chain(a, b, op: str, k: int, form: str = "cc"):
     """K5: the chain of ``gf_chain_plain`` on any u64 words, raw lazy words
-    out (a new tensor of a's shape)."""
-    _check_chain(a, b, op, k)
+    out (a new tensor of a's shape), the op in ``form`` (``CHAIN_FORMS``;
+    every form gives the same words)."""
+    _check_chain(a, b, op, k, form)
     if a.device.type == "cpu":
         return gf_chain_plain(a, b, op, k)
     if not a.is_cuda:
@@ -158,7 +167,8 @@ def gf_chain(a, b, op: str, k: int):
     lib = _build.load()
     with torch.cuda.device(a.device):
         err = lib.tf_gf_chain(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                              a.numel(), k, CHAIN_OPS[op], _build.stream_of(a))
+                              a.numel(), k, CHAIN_OPS[op], CHAIN_FORMS[form],
+                              _build.stream_of(a))
         _build.check(err, "gf_chain")
     gf_chain.launches += 1
     return out

@@ -3,17 +3,22 @@
 The counterpart of ``scripts/pallas_alu_probe.py``. K5 runs k steps of
 ``o = op(o, b)`` (then the limb swap) on every element, op ``mul_lazy`` or
 ``add_lazy``; the time of one step is (t(k=112) - t(k=16)) / 96, which
-cancels the launch and the memory traffic. It runs at the JAX probe's
-shape, 512 x 128 elements (65,536 threads' worth: the card is mostly
-idle), and at 2^22 elements, which fill it. For each it prints one JSON
-line: the time per step, G ops/s, and, where the toolkit has
-``cuobjdump``, what those ops issue per second from the instructions of
-one op in K5's SASS: its IMAD-family instructions (multiply-adds, which
-run on the FMA pipe) beside the card's IMAD rate, SMs x 64 lanes x the SM
-clock nvidia-smi reports, and all its instructions beside the dispatch
-rate, SMs x 4 schedulers x 32 lanes x that clock (integer adds, compares
-and selects issue to lanes of their own, so all instructions together can
-pass the IMAD rate but not the dispatch rate). Times are device times: the
+cancels the launch and the memory traffic. Each op runs in both forms
+(``probe_cuda.CHAIN_FORMS``: the carry chains the library's kernels run,
+and the C forms of earlier readings), side by side in one run. It runs at
+the JAX probe's shape, 512 x 128 elements (65,536 threads' worth: the card
+is mostly idle), and at 2^22 elements, which fill it. For each it prints
+one JSON line: the time per step, the SM cycles a warp spends on one step
+of one chain (``sm_cycles_per_warp_step``: the step's time at the maximum
+SM clock, times the card's SMs, over the warps' steps), G ops/s, and,
+where the toolkit has ``cuobjdump``, what those ops issue per second from
+the instructions of one op in K5's SASS: its IMAD-family instructions
+(multiply-adds, which run on the FMA pipe) beside the card's IMAD rate,
+SMs x 64 lanes x the SM clock nvidia-smi reports, and all its
+instructions beside the dispatch rate, SMs x 4 schedulers x 32 lanes x
+that clock (integer adds, compares and selects issue to lanes of their
+own, so all instructions together can pass the IMAD rate but not the
+dispatch rate). Times are device times: the
 host's launch overheads do not enter them. ``plain_over_kernel`` is the
 plain twin's time per step over K5's: it replaces the JAX script's
 "pallas/xla" ratio, and is no yardstick of speed (the twin is hundreds of
@@ -29,6 +34,7 @@ import json
 import re
 
 import numpy as np
+import torch
 
 from .. import _build
 from ..math import gf
@@ -42,9 +48,11 @@ K_LO, K_HI = 16, 112
 #: four times the ~0.5 us resolution of CUDA events: a shorter difference
 #: t(k=112) - t(k=16) says nothing about one step
 MIN_RESOLVED_MS = 0.002
-#: K5's instantiations in csrc/probes.cu, by op
-KERNEL_TAG = {"mul_lazy": "gf_chain_kernelILi0E", "add_lazy":
-              "gf_chain_kernelILi1E"}
+#: K5's instantiations in csrc/probes.cu, by (op, form)
+KERNEL_TAG = {(op, form): f"gf_chain_kernelILi{code}ELi"
+                          f"{probe_cuda.CHAIN_FORMS[form]}EE"
+              for op, code in probe_cuda.CHAIN_OPS.items()
+              for form in probe_cuda.CHAIN_FORMS}
 
 _ADDR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _TARGET = re.compile(r"\bBRA\b.*?(?:`\(([.\w]+)\)|(0x[0-9a-f]+))")
@@ -105,13 +113,13 @@ def imad_count(opcodes: collections.Counter) -> int:
     return sum(n for opcode, n in opcodes.items() if opcode.startswith("IMAD"))
 
 
-def sass_per_op(op: str) -> dict:
-    """Instructions of one ``op`` in K5: the step loop's body (one step of
-    four chains) over four, with the body's opcode counts."""
+def sass_per_op(op: str, form: str = "cc") -> dict:
+    """Instructions of one ``op`` in ``form`` in K5: the step loop's body
+    (one step of four chains) over four, with the body's opcode counts."""
     kernels = _build.sass()
     if kernels is None:
         return {"instructions_per_op": "not measured (no cuobjdump)"}
-    name = next(k for k in kernels if KERNEL_TAG[op] in k)
+    name = next(k for k in kernels if KERNEL_TAG[op, form] in k)
     body = loop_body(kernels[name])
     opcodes = opcode_counts(body)
     return {"kernel": name, "loop_instructions": len(body),
@@ -143,33 +151,45 @@ def sass_per_perm(kernels: dict[str, list[str]] | None, tag: str,
             "round_opcodes": dict(opcodes.most_common())}
 
 
-def per_step_ms(a, b, op: str, plain: bool = False, reps: int = 10) -> dict:
-    chain = probe_cuda.gf_chain_plain if plain else probe_cuda.gf_chain
-    t_lo = cuda_ms(lambda: chain(a, b, op, K_LO), reps)
-    t_hi = cuda_ms(lambda: chain(a, b, op, K_HI), reps)
+def per_step_ms(a, b, op: str, form: str | None = "cc",
+                reps: int = 10) -> dict:
+    """Device ms at k = 16 and 112 and of one step; form None: the twin."""
+    def chain(k):
+        if form is None:
+            return probe_cuda.gf_chain_plain(a, b, op, k)
+        return probe_cuda.gf_chain(a, b, op, k, form)
+
+    t_lo = cuda_ms(lambda: chain(K_LO), reps)
+    t_hi = cuda_ms(lambda: chain(K_HI), reps)
     return {"ms_k16": t_lo, "ms_k112": t_hi,
             "ms_per_step": (t_hi - t_lo) / (K_HI - K_LO)}
 
 
-def run_case(op: str, shape, sass: dict, clock_mhz: float,
-             plain_reps: int = 3) -> dict:
+def run_case(op: str, form: str, shape, sass: dict, clock_mhz: float,
+             plain: dict | None = None) -> dict:
+    """One (op, form) at one shape; ``plain``: the twin's ``per_step_ms``
+    at that shape, where the twin was timed."""
     a, b = operands(shape)
     n = a.numel()
-    kern = per_step_ms(a, b, op)
-    plain = per_step_ms(a, b, op, plain=True, reps=plain_reps)
+    kern = per_step_ms(a, b, op, form)
     imad_rate = lane_rate(IMAD_LANES_PER_SM, clock_mhz)
     dispatch = lane_rate(DISPATCH_LANES_PER_SM, clock_mhz)
-    res = {"op": op, "shape": list(shape), "elements": n, **kern,
-           "imad_rate_g_per_s": imad_rate / 1e9,
-           "dispatch_rate_g_per_s": dispatch / 1e9,
-           "plain_ms_per_step": plain["ms_per_step"]}
+    res = {"op": op, "form": form, "shape": list(shape), "elements": n,
+           **kern, "imad_rate_g_per_s": imad_rate / 1e9,
+           "dispatch_rate_g_per_s": dispatch / 1e9}
+    if plain is not None:
+        res["plain_ms_per_step"] = plain["ms_per_step"]
     if kern["ms_k112"] - kern["ms_k16"] < MIN_RESOLVED_MS:
         res["gops_per_s"] = ("not measured: the 96 steps take less than "
                              "the CUDA events resolve")
         return res
     ops_per_s = n / (kern["ms_per_step"] * 1e-3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res["sm_cycles_per_warp_step"] = (kern["ms_per_step"] * 1e-3 * clock_mhz
+                                      * 1e6 * sms / (n / 32))
     res["gops_per_s"] = ops_per_s / 1e9
-    res["plain_over_kernel"] = plain["ms_per_step"] / kern["ms_per_step"]
+    if plain is not None:
+        res["plain_over_kernel"] = plain["ms_per_step"] / kern["ms_per_step"]
     per_op = sass.get("instructions_per_op")
     if isinstance(per_op, float):
         res["g_instructions_per_s"] = ops_per_s * per_op / 1e9
@@ -180,21 +200,26 @@ def run_case(op: str, shape, sass: dict, clock_mhz: float,
 
 
 def run(shapes=None, plain_reps: int = 3) -> list[dict]:
-    """Both ops at every shape (the JAX probe's and the full one by
-    default), one JSON line each, after one line per op with what K5's SASS
-    says one op costs."""
+    """Both ops in both forms at every shape (the JAX probe's and the full
+    one by default), one JSON line each, after one line per (op, form)
+    with what K5's SASS says one op costs. The twin is timed once an (op,
+    shape)."""
     shapes = shapes or (JAX_SHAPE, FULL_SHAPE)
     _, clock_max = sm_clock_mhz()
     results = []
     for op in probe_cuda.CHAIN_OPS:
-        sass = sass_per_op(op)
-        print(json.dumps({"probe": "alu_sass", "op": op, **sass}), flush=True)
-        for shape in shapes:
-            res = run_case(op, shape, sass, clock_max, plain_reps)
-            res["sm_clock_mhz_max"] = clock_max
-            res["sm_clock_mhz_after"] = sm_clock_mhz()[0]
-            print(json.dumps({"probe": "alu", **res}), flush=True)
-            results.append({**res, "sass": sass})
+        plain = {shape: per_step_ms(*operands(shape), op, None, plain_reps)
+                 for shape in shapes}
+        for form in probe_cuda.CHAIN_FORMS:
+            sass = sass_per_op(op, form)
+            print(json.dumps({"probe": "alu_sass", "op": op, "form": form,
+                              **sass}), flush=True)
+            for shape in shapes:
+                res = run_case(op, form, shape, sass, clock_max, plain[shape])
+                res["sm_clock_mhz_max"] = clock_max
+                res["sm_clock_mhz_after"] = sm_clock_mhz()[0]
+                print(json.dumps({"probe": "alu", **res}), flush=True)
+                results.append({**res, "sass": sass})
     return results
 
 

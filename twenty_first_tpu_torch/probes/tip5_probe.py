@@ -110,12 +110,13 @@ def kernel_stats(library: Path | None = None) -> dict[str, dict]:
 
 def issue_rate() -> float:
     """SASS instructions per second that K5 issues on ``mul_lazy`` chains
-    at 2^22 elements, measured now (alu_probe)."""
-    sass = alu_probe.sass_per_op("mul_lazy")
+    in the C form (the rate earlier readings used) at 2^22 elements,
+    measured now (alu_probe)."""
+    sass = alu_probe.sass_per_op("mul_lazy", "c")
     if not isinstance(sass.get("instructions_per_op"), float):
         return float("nan")
-    res = alu_probe.run_case("mul_lazy", alu_probe.FULL_SHAPE, sass,
-                             sm_clock_mhz()[1], plain_reps=1)
+    res = alu_probe.run_case("mul_lazy", "c", alu_probe.FULL_SHAPE, sass,
+                             sm_clock_mhz()[1])
     return res.get("g_instructions_per_s", float("nan")) * 1e9
 
 
