@@ -8,12 +8,20 @@ Run from the repository root, with no arguments:
 It builds the hand-written kernels from twenty_first_tpu_torch/csrc with
 nvcc, holds each against its plain PyTorch twin on the card (exact
 equality: this is integer field arithmetic), reproduces values pinned from
-the JAX reference, and drives five paths, each with every launch counter
+the JAX reference, and drives six paths, each with every launch counter
 set to 0 just before it and read just after:
 
 * the flagship step (W = 8 trace columns, n = 2^20, expansion 4: a
   2^22-row LDE + Tip5 Merkle commit) and the entry point (K1, K3 and K2's
   two launches: the full-width level and the fused tail);
+* the authenticated-structures path (util_types/merkle_tree.py and
+  util_types/mmr/): a MerkleTree over the flagship step's 2^22 leaf
+  digests (every level a K2 launch written into the node tensor), its
+  frugal root, 160 openings verified (and one tampered, refused), the
+  authentication structure from the leafs alone, the MMR over 3 * 2^21 - 1
+  leafs with a successor proof of 2^16 more (and over 300 leafs, below the
+  parallelization cutoff, still on the card), and Tip5.hash_varlen_batch
+  (K3 and K1 for the leaf digests, K2's two launches, K1);
 * the standalone Tip5 batch path: permutation_batch at 2^16 and 2^22
   states, the T4/T5 entry points, trace, hash_varlen and
   hash_varlen_ragged (K1 and its trace mode);
@@ -35,7 +43,10 @@ the step's pass shape and SASS per butterfly), and the device line. K3's
 phase also holds in-place passes, inputs full of edge words and
 ntt(post=, out=) at the step's two sizes against the twins; the step's
 profile splits the glue (every kernel not of csrc/) by kernel name. The
-polynomial batch path's outputs equal its plain twins' on the card and
+Merkle tree's root equals the step's (SLICE_ROOT), its nodes and the
+MMR's peaks equal the plain twins' on the card; the tree is timed whole,
+at 2 and 2^10 leaves, and level by level below the resident-thread width
+beside K2's fused tail. The polynomial batch path's outputs equal its plain twins' on the card and
 PINNED_EXTRAPOLATE reproduces through the kernels; K7 is timed launch by
 launch at the path's two shapes. Any failure raises: a
 non-zero exit and no device line.
@@ -133,6 +144,10 @@ PINNED_EXTRAPOLATE = {
                 "f39512bc7e41defb5c34e44976950a05ab02253aaaa266aac49a4bd3e3047fe7"),
 }
 
+# the flagship step's root over the (W, N) trace of default_rng(2026): the
+# value every chip run of the port has reproduced since the first
+SLICE_ROOT = [1120500583678470414, 2451579851260808278, 5164740433303553855,
+              17133648008207886942, 15214632637220730653]
 # the main path's full width: W trace columns of length N, expansion E
 W, N, E = 8, 1 << 20, 4
 # the Tip5 batch path: permutation_batch at the reference's hash_parallel
@@ -142,6 +157,13 @@ BATCH_STATES = (1 << 16, N * E)
 T45_STATES = 4096
 TRACE_STATES = 1 << 16
 MIXED_INPUTS, MIXED_MAX_LENGTH = 256, 120
+# the authenticated-structures path: leaf indices opened (the order of a
+# STARK's query count), the MMR's leafs (3 * 2^21 - 1: 22 peaks) and the
+# leafs its successor proof appends, the small trees timed beside the big one
+MERKLE_QUERIES = 160
+MMR_LEAFS, MMR_APPEND = 3 * (1 << 21) - 1, 1 << 16
+SMALL_TREES = (2, 1 << 10)
+SMALL_MMR = 300  # leafs: below the parallelization cutoff (512)
 
 # The bound of a kernel's work: the larger of its bytes (each input read
 # once, each output written once) over the memory rate and its multiplies
@@ -450,7 +472,11 @@ def phase_k2(rng, tables) -> dict:
             "plain_ms": plain_ms, "tree_leafs": N * E,
             "perms": {"merkle_level": N * E - 1 - fused_perms,
                       "merkle_commit": fused_perms},
-            **summary, "plan": plan, "resident_threads": resident,
+            # the plan's launch count as plan_launches: "launches" is the
+            # path's count, which the kernels line sets
+            **{("plan_launches" if k == "launches" else k): v
+               for k, v in summary.items()},
+            "plan": plan, "resident_threads": resident,
             "level_kernel": level_row,
             **tip5_bound(40 * (N * E + 1), N * E - 1)}
 
@@ -616,6 +642,170 @@ def phase_slice(counters) -> dict:
          ms=device_ms, plain_wall_ms=plain_ms, max_memory_allocated=peak,
          plain_max_memory_allocated=plain_peak)
     emit("slice_profile", **device_breakdown(lambda: step(trace)))
+    return launches, vals[0].tolist()
+
+
+def phase_merkle_objects(counters, slice_root, fused_tail_ms) -> dict:
+    """The authenticated-structures path at a prover's sizes: the Merkle
+    tree over the flagship step's 2^22 leaf digests with 160 openings, the
+    MMR over 3 * 2^21 - 1 leafs and a successor proof of 2^16 more, and a
+    ragged batch through the Tip5 object API (K1, K2's two launches, K3
+    through the step's leaf digests)."""
+    from twenty_first_tpu_torch.ops import tip5_commit, tip5_cuda
+    from twenty_first_tpu_torch.parallel import pipeline
+    from twenty_first_tpu_torch.probes import timing
+    from twenty_first_tpu_torch.tip5 import Digest, Tip5
+    from twenty_first_tpu_torch.util_types.merkle_tree import (
+        MerkleTree, MerkleTreeInclusionProof)
+    from twenty_first_tpu_torch.util_types.mmr import (MmrAccumulator,
+                                                       MmrSuccessorProof)
+
+    step = pipeline.TraceLdeCommit(W, N, E)
+    trace = random_field(np.random.default_rng(2026), (W, N))
+    rng = np.random.default_rng(9)
+    indices = [int(i) for i in rng.integers(0, N * E, MERKLE_QUERIES)]
+    mmr_leafs = random_field(rng, (MMR_LEAFS, 5))
+    appended = random_field(rng, (MMR_APPEND, 5))
+    ragged = [rng.integers(0, P, size=int(n), dtype=np.uint64)
+              for n in rng.integers(0, 50, size=64)]
+
+    def path():
+        leafs = step.leaf_digests(trace)
+        tree = MerkleTree.new(leafs)
+        acc = MmrAccumulator.new_from_leafs(mmr_leafs)
+        return {"leafs": leafs, "tree": tree,
+                "frugal_root": MerkleTree.frugal_root(leafs),
+                "proof": tree.inclusion_proof_for_leaf_indices(indices),
+                "from_leafs": MerkleTree.authentication_structure_from_leafs(
+                    leafs, indices),
+                "acc": acc,
+                "successor": MmrSuccessorProof.new_from_batch_append(
+                    acc, appended),
+                "ragged": Tip5.hash_varlen_batch(ragged)}
+
+    got, launches = run_path(counters, path)
+    require_launched("merkle_objects", launches)
+    leafs, tree, proof = got["leafs"], got["tree"], got["proof"]
+    root = tree.root()
+    root_vals = [v.value() for v in root.values()]
+    if root_vals != slice_root or root_vals != SLICE_ROOT:
+        raise AssertionError(f"tree root {root_vals}, the step's root "
+                             f"{slice_root}, pinned {SLICE_ROOT}")
+    if got["frugal_root"] != root:
+        raise AssertionError("frugal_root != the tree's root")
+    if tree != MerkleTree.new(leafs, plain=True):
+        raise AssertionError("tree nodes: kernels != plain on the card")
+    # openings
+    auth = tree.authentication_structure(indices)
+    if auth != got["from_leafs"] or auth != proof.authentication_structure:
+        raise AssertionError("authentication_structure != "
+                             "authentication_structure_from_leafs")
+    t0 = time.perf_counter()
+    verified = proof.verify(root)
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    flipped = list(auth)
+    flipped[len(flipped) // 2] = Digest(
+        [flipped[len(flipped) // 2].values()[0] + 1]
+        + list(flipped[len(flipped) // 2].values()[1:]))
+    tampered = MerkleTreeInclusionProof(proof.tree_height,
+                                        proof.indexed_leafs, flipped)
+    tampered_verified = tampered.verify(root)
+    if not verified or tampered_verified:
+        raise AssertionError(f"verify: honest {verified}, tampered "
+                             f"{tampered_verified}")
+    # the MMR
+    acc = got["acc"]
+    acc_plain = MmrAccumulator.new_from_leafs(mmr_leafs, plain=True)
+    if (acc != acc_plain or acc.bag_peaks() != acc_plain.bag_peaks()
+            or len(acc.peaks()) != bin(MMR_LEAFS).count("1")):
+        raise AssertionError("MMR peaks: kernels != plain on the card")
+    successor = got["successor"]
+    new_acc = MmrAccumulator.new_from_leafs(torch.cat([mmr_leafs, appended]))
+    if successor != MmrSuccessorProof.new_from_batch_append(
+            acc, appended, plain=True) or not successor.verify(acc, new_acc):
+        raise AssertionError("successor proof fails from the old MMR to the "
+                             "new")
+    if got["ragged"] != [Tip5.hash_varlen([int(v) for v in seq])
+                         for seq in ragged]:
+        raise AssertionError("hash_varlen_batch != scalar hash_varlen")
+    # times: the tree, whole and at the small sizes
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    MerkleTree.new(leafs)
+    torch.cuda.synchronize()
+    tree_peak = torch.cuda.max_memory_allocated() - base
+    tree_launches = run_path(counters, lambda: MerkleTree.new(leafs))[1]
+    trees = {}
+    for size in SMALL_TREES + (N * E,):
+        small = leafs[:size].contiguous()
+        counts = run_path(counters, lambda: MerkleTree.new(small))[1]
+        if counts["merkle_level"] != size.bit_length() - 1:
+            raise AssertionError(f"MerkleTree.new({size}) made "
+                                 f"{counts['merkle_level']} K2 launches")
+        trees[size] = {"ms": cuda_ms(lambda: MerkleTree.new(small), 10),
+                       "wall_ms": wall_ms(lambda: MerkleTree.new(small), 10),
+                       "merkle_level_launches": counts["merkle_level"]}
+    # an MMR below the cutoff: its peaks are still reduced on the card
+    small_mmr = mmr_leafs[:SMALL_MMR].contiguous()
+    small_acc, counts = run_path(
+        counters, lambda: MmrAccumulator.new_from_leafs(small_mmr))
+    small_mmr_k2 = counts["merkle_level"] + counts["merkle_commit"]
+    if small_mmr_k2 == 0 or small_acc != MmrAccumulator.new_from_leafs(
+            small_mmr, plain=True):
+        raise AssertionError(f"MMR of {SMALL_MMR} leafs: {small_mmr_k2} K2 "
+                             "launches, or peaks != plain on the card")
+    small_mmr_ms = cuda_ms(lambda: MmrAccumulator.peaks_from_leafs(small_mmr),
+                           10)
+    small_mmr_wall_ms = wall_ms(
+        lambda: MmrAccumulator.peaks_from_leafs(small_mmr), 10)
+    # the levels below the resident-thread width, one launch a level, beside
+    # the commit's fused tail over the same levels (k2_merkle_tree)
+    tables = step.round_constants, step.lookup_table
+    full_width = sum(1 for t in tip5_commit.plan(
+        N * E, (N * E).bit_length() - 1,
+        tip5_cuda.resident_threads(leafs.device)) if t[0] == "level")
+    tail_leafs = tip5_commit.reduce_layers(leafs, full_width, tables=tables)
+    tail_tree_ms = cuda_ms(lambda: MerkleTree.new(tail_leafs), 10)
+    tail_level_ms, x = [], tail_leafs
+    while x.shape[0] > 1:
+        tail_level_ms.append(cuda_ms(
+            lambda x=x: tip5_cuda.merkle_level(x, False, *tables), 10))
+        x = tip5_cuda.merkle_level(x, False, *tables)
+    # the openings and the MMR
+    gather_ms = wall_ms(lambda: tree.authentication_structure(indices), 10)
+    from_leafs_ms = wall_ms(lambda: MerkleTree.authentication_structure_from_leafs(
+        leafs, indices), 5)
+    peaks_ms = cuda_ms(lambda: MmrAccumulator.peaks_from_leafs(mmr_leafs), 5)
+    peaks_wall_ms = wall_ms(lambda: MmrAccumulator.peaks_from_leafs(
+        mmr_leafs), 5)
+    peaks_plain_ms = timing.wall_ms(lambda: MmrAccumulator.peaks_from_leafs(
+        mmr_leafs, plain=True), 1, warmup=0)
+    successor_ms = wall_ms(lambda: MmrSuccessorProof.new_from_batch_append(
+        acc, appended), 3)
+    big = trees[N * E]
+    emit("merkle_objects", launches=launches, leafs=N * E,
+         root=[v.value() for v in root.values()], tree_ms=big["ms"],
+         tree_wall_ms=big["wall_ms"],
+         tree_wall_ms_runs=timing.wall_times(lambda: MerkleTree.new(leafs), 5),
+         tree_launches=tree_launches, tree_peak_bytes=tree_peak,
+         node_bytes=2 * N * E * 40,
+         small_trees={str(k): v for k, v in trees.items()},
+         tail_rows=tail_leafs.shape[0], tail_level_ms=tail_level_ms,
+         tail_levels_ms=sum(tail_level_ms), tail_tree_ms=tail_tree_ms,
+         fused_tail_ms=fused_tail_ms,
+         tail_excess_ms=sum(tail_level_ms) - fused_tail_ms,
+         queries=MERKLE_QUERIES, auth_nodes=len(auth),
+         auth_gather_copy_wall_ms=gather_ms,
+         auth_from_leafs_wall_ms=from_leafs_ms, verify_host_ms=verify_ms,
+         verified=verified, tampered_verified=tampered_verified,
+         mmr_leafs=MMR_LEAFS, mmr_peaks=len(acc.peaks()),
+         peaks_from_leafs_ms=peaks_ms, peaks_from_leafs_wall_ms=peaks_wall_ms,
+         peaks_from_leafs_plain_wall_ms=peaks_plain_ms,
+         small_mmr_leafs=SMALL_MMR, small_mmr_k2_launches=small_mmr_k2,
+         small_mmr_peaks_ms=small_mmr_ms,
+         small_mmr_peaks_wall_ms=small_mmr_wall_ms,
+         successor_appended=MMR_APPEND, successor_paths=len(successor.paths),
+         successor_wall_ms=successor_ms, ragged_inputs=len(ragged))
     return launches
 
 
@@ -1181,8 +1371,9 @@ def main() -> None:
     phase_pinned_roots()
     counters = (tip5_cuda.tip5_permute, tip5_cuda.merkle_level,
                 tip5_cuda.merkle_commit, ntt_cuda.ntt_local_pass)
-    launches = phase_slice(counters)
+    launches, slice_root = phase_slice(counters)
     phase_entry()
+    merkle = phase_merkle_objects(counters, slice_root, k2["tail_ms"])
     batch = phase_tip5_batch(rng, tables)
     from twenty_first_tpu_torch.ops import poly_cuda
 
@@ -1218,16 +1409,21 @@ def main() -> None:
          "replaces": f"{pallas}:252 (T1); {pallas}:102 (T4); "
                      f"{pallas}:383 (T5)",
          "launches": launches["tip5_permute"]
+                     + merkle["tip5_permute"]
                      + batch["launches"]["tip5_permute"],
          "launches_by_path": {"slice": launches["tip5_permute"],
+                              "merkle_objects": merkle["tip5_permute"],
                               "tip5_batch": batch["launches"]["tip5_permute"]},
          **k1, **NO_LIBRARY, "trace_mode": batch["trace"]},
         {"name": "merkle_commit", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/tip5.cu",
          "replaces": f"{pallas}:262 (T2)",
-         "launches": launches["merkle_commit"] + launches["merkle_level"],
-         "launches_by_wrapper": {"merkle_level": launches["merkle_level"],
-                                 "merkle_commit": launches["merkle_commit"]},
+         "launches": sum(path[k] for path in (launches, merkle)
+                         for k in ("merkle_level", "merkle_commit")),
+         "launches_by_path": {
+             path: {k: counts[k] for k in ("merkle_level", "merkle_commit")}
+             for path, counts in (("slice", launches),
+                                  ("merkle_objects", merkle))},
          **k2, **NO_LIBRARY},
         {"name": "ntt_local_pass", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/ntt.cu",
@@ -1235,10 +1431,12 @@ def main() -> None:
                      "scripts/prof_pallas_pass.py:53 (T6); "
                      "scripts/prof_pallas_pass.py:110 (T7)",
          "launches": launches["ntt_local_pass"]
+                     + merkle["ntt_local_pass"]
                      + poly["launches"]["ntt_local_pass"]
                      + probe_pass["launches"]["ntt_local_pass"],
          "launches_by_path": {
              "slice": launches["ntt_local_pass"],
+             "merkle_objects": merkle["ntt_local_pass"],
              "poly_batch": poly["launches"]["ntt_local_pass"],
              "probe_pass": probe_pass["launches"]["ntt_local_pass"]},
          "t7_launches_per_pass": probe_pass["k3_per_tile_launches"],

@@ -319,3 +319,89 @@ def test_k6_extrapolation_matches_jax_pins(cuda, name):
         np.testing.assert_array_equal(
             ntt.conv_values(cw, cw[::-1].copy(), divide=True, device=cuda),
             jntt.conv_values(cw, cw[::-1].copy(), divide=True))
+
+
+def _vals(digest) -> list[int]:
+    return [v.value() for v in digest.values()]
+
+
+def test_merkle_level_out_into_aligned_and_misaligned_views(cuda):
+    """``merkle_level(out=)`` writes a level straight into a tree's node
+    rows: an even row starts on a 16-byte boundary, an odd row (the
+    root's) does not, and both take the kernel's output; a strided ``out``
+    is refused."""
+    rc, lut = tip5_tables(cuda)
+    children = gf.from_u64(_rand((256, 5))).to(cuda)
+    want = tip5_cuda.merkle_level_plain(children, False, rc, lut)
+    nodes = torch.zeros((512, 5), dtype=torch.int64, device=cuda)
+    for row in (128, 1):
+        out = nodes[row: row + 128]
+        assert (out.data_ptr() % 16 == 0) == (row % 2 == 0)
+        before = tip5_cuda.merkle_level.launches
+        got = tip5_cuda.merkle_level(children, False, rc, lut, out=out)
+        assert tip5_cuda.merkle_level.launches == before + 1
+        assert got.data_ptr() == out.data_ptr()
+        assert torch.equal(out, want)
+    with pytest.raises(ValueError):
+        tip5_cuda.merkle_level(children, False, rc, lut, out=nodes[::4])
+
+
+@pytest.mark.parametrize("height", [0, 1, 2, 3, 12])
+def test_merkle_tree_on_the_card_matches_twin_and_jax(cuda, height):
+    from twenty_first_tpu.util_types import merkle_tree as jmt
+    from twenty_first_tpu_torch.util_types import merkle_tree as tmt
+
+    leafs = _rand((1 << height, 5))
+    before = tip5_cuda.merkle_level.launches
+    tree = tmt.MerkleTree.new(gf.from_u64(leafs).to(cuda))
+    assert tip5_cuda.merkle_level.launches == before + height
+    assert tree == tmt.MerkleTree.new(leafs, device=cuda, plain=True)
+    jtree = jmt.MerkleTree.new(leafs)
+    np.testing.assert_array_equal(tree.node_array(), jtree.node_array())
+    assert _vals(tmt.MerkleTree.frugal_root(leafs, device=cuda)) == \
+        _vals(jtree.root())
+
+
+def test_authentication_structure_from_leafs_on_the_card(cuda):
+    from twenty_first_tpu.util_types import merkle_tree as jmt
+    from twenty_first_tpu_torch.util_types import merkle_tree as tmt
+
+    leafs = _rand((1 << 11, 5))
+    indices = [int(i) for i in RNG.integers(0, 1 << 11, 40)] + [0, 2047]
+    on_card = gf.from_u64(leafs).to(cuda)
+    before = tip5_cuda.merkle_level.launches
+    got = tmt.MerkleTree.authentication_structure_from_leafs(on_card, indices)
+    assert tip5_cuda.merkle_level.launches > before
+    tree = tmt.MerkleTree.new(on_card)
+    assert got == tree.authentication_structure(indices)
+    want = jmt.MerkleTree.new(leafs).authentication_structure(indices)
+    assert [_vals(d) for d in got] == [_vals(d) for d in want]
+    proof = tree.inclusion_proof_for_leaf_indices(indices)
+    assert proof.verify(tree.root())
+
+
+def _k2_launches():
+    return tip5_cuda.merkle_level.launches + tip5_cuda.merkle_commit.launches
+
+
+@pytest.mark.parametrize("n", [300, 3 << 9])  # below the cutoff, above it
+def test_mmr_on_the_card_matches_jax(cuda, n):
+    from twenty_first_tpu.util_types import mmr as jmmr
+    from twenty_first_tpu_torch.util_types import mmr as tmmr
+
+    leafs, more = _rand((n, 5)), _rand((40, 5))
+    before = _k2_launches()
+    acc = tmmr.MmrAccumulator.new_from_leafs(gf.from_u64(leafs).to(cuda))
+    assert _k2_launches() > before
+    jacc = jmmr.MmrAccumulator.new_from_leafs(leafs)
+    assert [_vals(d) for d in acc.peaks()] == [_vals(d) for d in jacc.peaks()]
+    before = _k2_launches()  # host leafs asked onto the card go there too
+    assert tmmr.MmrAccumulator.peaks_from_leafs(leafs, device=cuda) == \
+        acc.peaks()
+    assert _k2_launches() > before
+    assert _vals(acc.bag_peaks()) == _vals(jacc.bag_peaks())
+    proof = tmmr.MmrSuccessorProof.new_from_batch_append(
+        acc, gf.from_u64(more).to(cuda))
+    new = tmmr.MmrAccumulator.new_from_leafs(
+        np.concatenate([leafs, more]), device=cuda)
+    assert proof.verify(acc, new)

@@ -477,6 +477,23 @@ def test_port_never_imports_jax():
             "twenty_first_tpu_torch.math.ntt",
             "twenty_first_tpu_torch.math.poly_batch",
             "twenty_first_tpu_torch.errors",
+            "twenty_first_tpu_torch.config",
+            "twenty_first_tpu_torch.math.b_field_element",
+            "twenty_first_tpu_torch.math.x_field_element",
+            "twenty_first_tpu_torch.tip5",
+            "twenty_first_tpu_torch.tip5.digest",
+            "twenty_first_tpu_torch.tip5.tip5",
+            "twenty_first_tpu_torch.util_types",
+            "twenty_first_tpu_torch.util_types.sponge",
+            "twenty_first_tpu_torch.util_types.merkle_tree",
+            "twenty_first_tpu_torch.util_types.mmr",
+            "twenty_first_tpu_torch.util_types.mmr.shared_basic",
+            "twenty_first_tpu_torch.util_types.mmr.shared_advanced",
+            "twenty_first_tpu_torch.util_types.mmr.mmr_trait",
+            "twenty_first_tpu_torch.util_types.mmr.mmr_membership_proof",
+            "twenty_first_tpu_torch.util_types.mmr.mmr_accumulator",
+            "twenty_first_tpu_torch.util_types.mmr.archival_mmr",
+            "twenty_first_tpu_torch.util_types.mmr.mmr_successor_proof",
             "twenty_first_tpu_torch.ops.poly_cuda",
             "twenty_first_tpu_torch.ops.tip5_commit",
             "twenty_first_tpu_torch.ops.ntt_cuda",

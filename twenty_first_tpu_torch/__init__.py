@@ -14,9 +14,18 @@ Layout, each module named after its counterpart in the JAX package:
   and the NTT-domain convolutions;
 * ``math/poly_batch.py``: batch-first polynomial ops (coset LDE, products,
   barycentric evaluation, out-of-domain extrapolation);
-* ``errors.py``: the JAX package's error types;
+* ``math/b_field_element.py``, ``math/x_field_element.py``: the scalar
+  field elements (host side);
+* ``errors.py``: the JAX package's error types; ``config.py``: the
+  reference's Merkle parallelization cutoff;
 * ``tip5/permutation.py``: the Tip5 permutation, its trace, and the batch,
   hash and sponge entry points (fixed, variable and mixed lengths);
+  ``tip5/digest.py``, ``tip5/tip5.py``, ``util_types/sponge.py``: the
+  Tip5 object API (``Digest``, the scalar sponge, host side);
+* ``util_types/merkle_tree.py``: ``MerkleTree`` on a device (K2 builds it
+  level by level), authentication structures and inclusion proofs;
+  ``util_types/mmr/``: the MMR accumulator, the archival MMR, membership
+  and successor proofs;
 * ``ops/tip5_cuda.py``, ``ops/ntt_cuda.py``, ``ops/probe_cuda.py``,
   ``ops/poly_cuda.py``: wrappers of the hand-written Hopper kernels in
   ``csrc/`` (Tip5 permutation and its trace mode, multi-level Merkle

@@ -168,40 +168,61 @@ def _pair_level(digests, rc, lut):
     return permutation_plain(states, rc, lut)[:, :DIGEST_LENGTH].contiguous()
 
 
-def merkle_level_plain(x, leaf: bool, rc, lut):
+def merkle_level_plain(x, leaf: bool, rc, lut, out=None):
     """Plain twin of ``merkle_level``."""
     if leaf:
-        return permutation_plain(x, rc, lut)[:, :DIGEST_LENGTH].contiguous()
-    return _pair_level(x, rc, lut)
+        parents = permutation_plain(x, rc, lut)[:, :DIGEST_LENGTH].contiguous()
+    else:
+        parents = _pair_level(x, rc, lut)
+    return parents if out is None else out.copy_(parents)
 
 
-def merkle_level(x, leaf: bool, rc, lut):
+def _check_out(out, parents: int, x):
+    if (out.dtype != torch.int64 or out.shape != (parents, DIGEST_LENGTH)
+            or out.device != x.device):
+        raise ValueError(f"out must be a ({parents}, {DIGEST_LENGTH}) int64 "
+                         f"tensor on {x.device}, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+
+
+def merkle_level(x, leaf: bool, rc, lut, out=None):
     """One K2 level at full width, a thread per parent.
 
     leaf mode: x is (rows, 16) leaf states -> (rows, 5) digests;
     pair mode: x is (rows, 5) digests, rows even -> (rows / 2, 5).
+
+    ``out``, if given, is a contiguous (parents, 5) int64 tensor that
+    receives the parents and is returned: say the rows of a tree's node
+    tensor that hold the level. Only the input must start on a 16-byte
+    boundary (the kernel loads rows in 16-byte chunks; ``_aligned``); it
+    stores each digest a word at a time, so ``out`` may start at any row,
+    the root's row 1 included.
     """
     _check_rows(x, STATE_SIZE if leaf else DIGEST_LENGTH,
                 "leaf states" if leaf else "digests")
     if not leaf and x.shape[0] % 2:
         raise ValueError(f"{x.shape[0]} digests do not pair up")
     _check_tables(rc, lut, x.device)
+    parents = x.shape[0] if leaf else x.shape[0] // 2
+    if out is not None:
+        _check_out(out, parents, x)
     if x.device.type == "cpu":
-        return merkle_level_plain(x, leaf, rc, lut)
+        return merkle_level_plain(x, leaf, rc, lut, out=out)
     _require_cuda(x)
     x = _aligned(x)
-    parents = x.shape[0] if leaf else x.shape[0] // 2
-    out = torch.empty((parents, DIGEST_LENGTH), dtype=x.dtype, device=x.device)
-    if parents == 0:
-        return out
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        err = lib.tf_merkle_level(x.data_ptr(), out.data_ptr(), parents,
-                                  int(leaf), rc.data_ptr(), lut.data_ptr(),
-                                  _build.stream_of(x))
-        _build.check(err, "merkle_level")
-    merkle_level.launches += 1
-    return out
+    dst = out if out is not None else torch.empty(
+        (parents, DIGEST_LENGTH), dtype=x.dtype, device=x.device)
+    if parents > 0:
+        lib = _build.load()
+        with torch.cuda.device(x.device):
+            err = lib.tf_merkle_level(x.data_ptr(), dst.data_ptr(), parents,
+                                      int(leaf), rc.data_ptr(),
+                                      lut.data_ptr(), _build.stream_of(x))
+            _build.check(err, "merkle_level")
+        merkle_level.launches += 1
+    return dst
 
 
 merkle_level.launches = 0

@@ -73,7 +73,8 @@ class TraceLdeCommit(nn.Module):
                                  getattr(self, f"{name}_tw2"),
                                  getattr(self, f"{name}_diag"))
 
-    def forward(self, trace, plain: bool = False):
+    def leaf_digests(self, trace, plain: bool = False):
+        """Steps 1-4: the (expansion * n, 5) leaf digests of the commit."""
         if trace.shape != (self.w, self.n) or trace.dtype != torch.int64:
             raise ValueError(f"trace must be ({self.w}, {self.n}) int64, got "
                              f"{tuple(trace.shape)} {trace.dtype}")
@@ -89,25 +90,27 @@ class TraceLdeCommit(nn.Module):
                     post=self.offset_powers, out=padded[:, :self.n])
         evals = ntt_mod.ntt(padded, plain=plain,
                             tables=self._ntt_tables("fwd", self.big_n, False))
-        return hash_rows_commit(
-            evals, tables=(self.round_constants, self.lookup_table),
-            plain=plain)
+        return hash_rows(evals, tables=(self.round_constants,
+                                        self.lookup_table), plain=plain)
+
+    def forward(self, trace, plain: bool = False):
+        return tip5_commit.reduce_layers(
+            self.leaf_digests(trace, plain), self.big_n.bit_length() - 1,
+            tables=(self.round_constants, self.lookup_table), plain=plain)
 
 
-def hash_rows_commit(evals, *, tables=None, plain: bool = False):
-    """(W, big_n) evaluation planes -> (1, 5) root: one fixed-length Tip5
-    permutation per row (W <= RATE), then the Merkle reduction."""
+def hash_rows(evals, *, tables=None, plain: bool = False):
+    """(W, big_n) evaluation planes -> (big_n, 5) leaf digests: one
+    fixed-length Tip5 permutation per row (W <= RATE)."""
     w, big_n = evals.shape
     if w > RATE:
         raise ValueError(f"at most {RATE} columns fit one permutation, got {w}")
-    log_rows = _log2_exact(big_n, "row count")
     states = torch.zeros((big_n, STATE_SIZE), dtype=evals.dtype,
                          device=evals.device)
     states[:, :w] = evals.t()
     states[:, RATE:] = 1
     leafs = tip5.permutation(states, tables=tables, plain=plain)
-    return tip5_commit.reduce_layers(leafs[:, :DIGEST_LENGTH], log_rows,
-                                     tables=tables, plain=plain)
+    return leafs[:, :DIGEST_LENGTH].contiguous()
 
 
 def trace_lde_commit(trace, expansion: int = 4, offset: int | None = None,
