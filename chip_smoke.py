@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 It builds the hand-written kernels from twenty_first_tpu_torch/csrc with
 nvcc, holds each against its plain PyTorch twin on the card (exact
 equality: this is integer field arithmetic), reproduces values pinned from
-the JAX reference, and drives six paths, each with every launch counter
+the JAX reference, and drives seven paths, each with every launch counter
 set to 0 just before it and read just after:
 
 * the flagship step (W = 8 trace columns, n = 2^20, expansion 4: a
@@ -31,6 +31,20 @@ set to 0 just before it and read just after:
   trace's width and length, the barycentric evaluation, the coset LDE and
   its inverse, batch products, convolutions at 2^22 and 2^20 (K3, K6, K7
   and K8);
+* the polynomial engine (math/polynomial.py) through its object API at
+  the shapes of bench.py:584-706 and the flagship step's prover width
+  (products at degree 2^14 - 1 and 2^20 - 1, the coset evaluation of
+  2^20 coefficients on 2^22 points and back, clean divisions, a zerofier,
+  multipoint evaluation and interpolation at 2^14 and 2^15 points, modular
+  coset interpolation, the 2^18 -> 2^10 and 8 x 2^20 -> 16 xfe
+  extrapolations, reduction, a power-series inverse, the barycentric
+  evaluation of 2^22 values) on its default routes, with the native host
+  core loaded: K3, K6, K7 and K8 above the host/device crossovers. Every
+  result equals the same call on the host alone and passes an independent
+  check; PINNED_POLYNOMIAL reproduces with every crossover at 0; a sweep
+  times the host against the card for one-shot transforms,
+  convolutions, batched row products and batch inversions, beside the
+  crossovers chosen;
 * the NTT pass probe over 2^24 elements (K3 and K4);
 * the ALU probe, chains of lazy field ops (K5) in both forms.
 
@@ -55,8 +69,10 @@ It needs a CUDA device and refuses to run without one.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -143,6 +159,11 @@ PINNED_EXTRAPOLATE = {
                  8371356374153446334],
                 "f39512bc7e41defb5c34e44976950a05ab02253aaaa266aac49a4bd3e3047fe7"),
 }
+
+# sha256 of polynomial_pin_results() through the JAX package (tests/
+# test_torch_polynomial.py re-derives it there); the polynomial phase
+# reproduces it with every crossover forced to 0, all on the card
+PINNED_POLYNOMIAL = "230028674833d521f57b6ce01e256d8036ca8239b8fc7d3a28b6f40bdedf853e"
 
 # the flagship step's root over the (W, N) trace of default_rng(2026): the
 # value every chip run of the port has reproduced since the first
@@ -942,6 +963,8 @@ def phase_tip5_batch(rng, tables) -> dict:
                                    TRACE_STATES)}}
 
 
+#: the polynomial phase's inputs: np.random.default_rng(POLY_SEED)
+POLY_SEED = 10
 #: the polynomial batch path's widths: the flagship trace (W x N), bench.py's
 #: out-of-domain shape (one 2^18 codeword to 2^10 points), 16 xfe points,
 #: the convolutions' lengths
@@ -1226,6 +1249,398 @@ def phase_poly_batch(rng, counters) -> dict:
     return {"launches": launches, "k6": k6, "k7": k7, "k8": k8}
 
 
+# ---------------------------------------------------------------------------
+# the polynomial engine (math/polynomial.py) through its object API
+# ---------------------------------------------------------------------------
+
+EXTRAPOLATE_KNOB = "TWENTY_FIRST_TPU_EXTRAPOLATE_DEVICE"
+#: the crossover sweep: one-shot transforms, convolutions and batch
+#: inversions of 2^8 .. 2^22 elements; batched row products of rows of
+#: 2^(k+1) + 1 coefficients (the product tree's levels over leafs of 2^k
+#: points), 2^(k+2) elements a padded row, at 2^9 .. 2^22 elements a level
+SWEEP_LOG2 = range(8, 23)
+ROWS_SWEEP = ((4, (9, 10, 11, 12, 14, 18, 22)), (7, (10, 11, 12, 14, 18, 22)),
+              (10, (12, 13, 14, 18, 22)))
+
+
+@contextlib.contextmanager
+def polynomial_routes(limit: int, knob: str, device=None):
+    """The polynomial engine with every crossover (``ntt.HOST_NTT_MAX_ELEMS``,
+    ``HOST_CONV_MAX_ELEMS``, ``polynomial.HOST_INVERSE_MAX_ELEMS``) at
+    ``limit``, the extrapolation knob at ``knob`` and ``ntt.DEVICE`` at
+    ``device`` (unchanged if None): 0 and "1" send all of its work to the
+    device, ``sys.maxsize`` and "0" keep it on the host."""
+    from twenty_first_tpu_torch.math import ntt, polynomial
+
+    saved = (ntt.DEVICE, ntt.HOST_NTT_MAX_ELEMS, ntt.HOST_CONV_MAX_ELEMS,
+             polynomial.HOST_INVERSE_MAX_ELEMS)
+    old_knob = os.environ.get(EXTRAPOLATE_KNOB)
+    ntt.DEVICE = device or ntt.DEVICE
+    ntt.HOST_NTT_MAX_ELEMS = ntt.HOST_CONV_MAX_ELEMS = limit
+    polynomial.HOST_INVERSE_MAX_ELEMS = limit
+    os.environ[EXTRAPOLATE_KNOB] = knob
+    try:
+        yield
+    finally:
+        (ntt.DEVICE, ntt.HOST_NTT_MAX_ELEMS, ntt.HOST_CONV_MAX_ELEMS,
+         polynomial.HOST_INVERSE_MAX_ELEMS) = saved
+        os.environ.pop(EXTRAPOLATE_KNOB, None)
+        if old_knob is not None:
+            os.environ[EXTRAPOLATE_KNOB] = old_knob
+
+
+def card_routes(device=None):
+    """All of the polynomial engine's work on ``device`` (ntt.DEVICE, the
+    card, if None)."""
+    return polynomial_routes(0, "1", device)
+
+
+def host_routes():
+    """All of the polynomial engine's work on the host."""
+    return polynomial_routes(sys.maxsize, "0")
+
+
+def polynomial_pin_results(k) -> list:
+    """Results of the polynomial engine at about 2^12 through package
+    ``k``'s object API (a namespace with ``Polynomial``, ``mod``, the
+    polynomial module, ``bfe`` and ``xfe``), inputs from
+    np.random.default_rng(12): products, clean division, a zerofier,
+    multipoint evaluation, interpolation, the coset transforms, modular
+    coset interpolation, three extrapolations, reduction, a power-series
+    inverse, barycentric evaluation."""
+    rng = np.random.default_rng(12)
+
+    def r(shape):
+        return rng.integers(0, P, size=shape, dtype=np.uint64)
+
+    poly = k.Polynomial
+    a, b = poly.from_array(r(1 << 12)), poly.from_array(r(1 << 12))
+    ax = poly.from_array(r((1 << 10, 3)), True)
+    pts = np.unique(r(1 << 10))[:1 << 9]
+    z = poly.zerofier(pts[:64])
+    cw = r(1 << 12)
+    xpt = k.xfe(tuple(int(v) for v in r(3)))
+    dom = np.unique(r(1 << 11))[:1 << 10]
+    return [a.fast_multiply(b), ax * b, (a * z).clean_divide(z),
+            poly.zerofier(pts), a.batch_evaluate(pts),
+            poly.batch_fast_interpolate(dom, [r(1 << 10)])[0],
+            a.fast_coset_evaluate(k.bfe(7), 1 << 13),
+            poly.fast_coset_interpolate(k.bfe(7), cw),
+            poly.fast_modular_coset_interpolate(cw, k.bfe(7), z),
+            poly.coset_extrapolate(k.bfe(7), cw, pts[:64]),
+            poly.coset_extrapolate(k.bfe(7), cw, [xpt]),
+            poly.batch_coset_extrapolate(k.bfe(7), 1 << 10, cw, pts[:16]),
+            a.reduce(z), a.formal_power_series_inverse_newton(1 << 10),
+            k.mod.barycentric_evaluate(cw, xpt)]
+
+
+def words(v) -> np.ndarray:
+    """A result of either package's polynomial engine as uint64 words:
+    a Polynomial's or FieldElements' array, an element's coefficients, a
+    list's elements in turn."""
+    if hasattr(v, "to_array"):
+        return np.asarray(v.to_array(), dtype=np.uint64).reshape(-1)
+    if hasattr(v, "coefficients"):
+        return np.array([c.value() for c in v.coefficients], dtype=np.uint64)
+    if hasattr(v, "value"):
+        return np.array([v.value()], dtype=np.uint64)
+    return np.array([w for e in v for w in words(e).tolist()],
+                    dtype=np.uint64)
+
+
+def polynomial_pin(k) -> str:
+    """sha256 over polynomial_pin_results(k), each result's word count
+    and words, little-endian."""
+    h = hashlib.sha256()
+    for v in polynomial_pin_results(k):
+        w = np.ascontiguousarray(words(v), dtype="<u8")
+        h.update(len(w).to_bytes(8, "little"))
+        h.update(w.tobytes())
+    return h.hexdigest()
+
+
+def port_namespace():
+    """The port's side of polynomial_pin_results."""
+    from types import SimpleNamespace
+
+    from twenty_first_tpu_torch.math import polynomial
+    from twenty_first_tpu_torch.math.b_field_element import bfe
+    from twenty_first_tpu_torch.math.x_field_element import xfe
+
+    return SimpleNamespace(Polynomial=polynomial.Polynomial, mod=polynomial,
+                           bfe=bfe, xfe=xfe)
+
+
+def require_words(what: str, got, want) -> None:
+    g, w = words(got), words(want)
+    if g.shape != w.shape or not np.array_equal(g, w):
+        raise AssertionError(f"polynomial {what}: the card's routes and the "
+                             f"host's differ")
+
+
+def crossover(host: dict, card: dict) -> int | None:
+    """The largest size at which the host is at least as fast as the card
+    (the card wins at every size above it); None if the card wins at
+    every size."""
+    return max((n for n in host if host[n] <= card[n]), default=None)
+
+
+def wall_times(fn, reps: int, warmup: int = 1) -> list:
+    """Host milliseconds of each fn() call up to the device's end
+    (probes/timing.py)."""
+    from twenty_first_tpu_torch.probes import timing
+
+    return timing.wall_times(fn, reps, warmup)
+
+
+def phase_polynomial_sweep(rng) -> dict:
+    """Host wall time against the card's, numpy in and out, of one-shot
+    transforms, convolutions, batched row products and batch inversions;
+    the measured cuts beside the chosen ones."""
+    from twenty_first_tpu_torch import native
+    from twenty_first_tpu_torch.math import ntt, polynomial
+
+    rows = {"ntt": ({}, {}), "conv": ({}, {}), "inverse": ({}, {})}
+    for log_n in SWEEP_LOG2:
+        n = 1 << log_n
+        x, y = (rng.integers(0, P, size=n, dtype=np.uint64) for _ in "xy")
+        inv = np.where(x == 0, np.uint64(1), x)
+        for name, host, card in (
+                ("ntt", lambda: ntt.ntt_host(x),
+                 lambda: ntt.ntt_values(x, device=ntt.DEVICE)),
+                ("conv", lambda: ntt._conv_host(x, y, False, False),
+                 lambda: ntt.conv_values(x, y, device=ntt.DEVICE)),
+                ("inverse", lambda: native.batch_inverse(inv),
+                 lambda: polynomial._finv_device(inv, False))):
+            rows[name][0][n] = statistics.median(wall_times(host, 5))
+            rows[name][1][n] = statistics.median(wall_times(card, 5))
+    for k, logs in ROWS_SWEEP:
+        size = 1 << (k + 2)
+        row_host, row_card = {}, {}
+        for log_total in logs:
+            m = (1 << log_total) // size
+            a = rng.integers(0, P, size=(m, (1 << (k + 1)) + 1),
+                             dtype=np.uint64)
+            b = rng.integers(0, P, size=a.shape, dtype=np.uint64)
+
+            def mul_rows():
+                return polynomial.Polynomial._mul_rows(a, b, False)
+
+            with host_routes():
+                host = statistics.median(wall_times(mul_rows, 3))
+                want = mul_rows()
+            with card_routes():
+                card = statistics.median(wall_times(mul_rows, 3))
+                if not np.array_equal(mul_rows(), want):
+                    raise AssertionError(f"_mul_rows ({m}, {a.shape[1]}): "
+                                         "the card's and the host's differ")
+            row_host[m * size], row_card[m * size] = host, card
+        rows[f"rows_of_{(1 << (k + 1)) + 1}"] = (row_host, row_card)
+    return {"ms": {name: {"host_ms": {f"2^{n.bit_length() - 1}": v
+                                      for n, v in h.items()},
+                          "card_ms": {f"2^{n.bit_length() - 1}": v
+                                      for n, v in c.items()},
+                          "host_up_to": crossover(h, c)}
+                   for name, (h, c) in rows.items()},
+            "chosen": {"HOST_NTT_MAX_ELEMS": ntt.HOST_NTT_MAX_ELEMS,
+                       "HOST_CONV_MAX_ELEMS": ntt.HOST_CONV_MAX_ELEMS,
+                       "HOST_INVERSE_MAX_ELEMS":
+                           polynomial.HOST_INVERSE_MAX_ELEMS,
+                       "_mul_rows": "the card above HOST_CONV_MAX_ELEMS "
+                                    "elements a level (m rows x the padded "
+                                    "product length)"}}
+
+
+def phase_polynomial(counters) -> dict:
+    """The polynomial engine's object API at the shapes of bench.py:584-706
+    (benches/*.rs) and the flagship step's prover width, once with the
+    launch counters at 0 on its default routes; every result against the
+    same call on the host alone and by an independent check; the pin; each
+    operation's host median and device time; the crossover sweep."""
+    from twenty_first_tpu_torch import native
+    from twenty_first_tpu_torch.math import ntt, poly_batch, polynomial
+    from twenty_first_tpu_torch.math.b_field_element import bfe
+
+    if not native.available():
+        raise AssertionError("polynomial: the native host core did not load")
+    poly = polynomial.Polynomial
+    rng = np.random.default_rng(POLY_SEED)
+
+    def r(shape):
+        return rng.integers(0, P, size=shape, dtype=np.uint64)
+
+    def distinct(n):
+        return np.unique(rng.integers(1, P, size=2 * n, dtype=np.uint64))[:n]
+
+    def from_array(arr):
+        return poly.from_array(arr, arr.ndim == 2)
+
+    m14 = [from_array(r(1 << 14)) for _ in "ab"]
+    m20 = [from_array(r(N)) for _ in "ab"]
+    c20 = from_array(r(N))
+    z9, z10 = poly.zerofier(distinct(1 << 9)), poly.zerofier(distinct(1 << 10))
+    q12, q20 = from_array(r(1 << 12)), from_array(r(N))
+    with host_routes():
+        d9, d10 = q12 * z9, q20 * z10
+    pts14, pts14e = distinct(1 << 14), distinct(1 << 14)
+    e14 = from_array(r(1 << 14))
+    pts15, vals15 = distinct(1 << 15), r(1 << 15)
+    cw16, mod9 = r(1 << 16), from_array(r((1 << 9) + 1))
+    cw18, pts10 = r(POLY_BENCH_N), distinct(POLY_BENCH_POINTS)
+    # xfe points as elements: the host route's zerofier tree keeps slices
+    # of the points as they are given
+    cw8 = r(8 * N)
+    xpts16 = [port_namespace().xfe(tuple(int(v) for v in row))
+              for row in r((POLY_XFE_POINTS, 3))]
+    r14, f10 = from_array(r(1 << 14)), from_array(r(1 << 10))
+    cw22 = r(N * E)
+    xz = port_namespace().xfe(tuple(int(v) for v in r(3)))
+    seven = bfe(7)
+    ops = {
+        "fast_multiply_deg_2^14-1": lambda: m14[0].fast_multiply(m14[1]),
+        "fast_multiply_deg_2^20-1": lambda: m20[0].fast_multiply(m20[1]),
+        "fast_coset_evaluate_2^20_on_2^22": lambda: c20.fast_coset_evaluate(
+            seven, N * E),
+        "clean_divide_2^12_by_zerofier_2^9": lambda: d9.clean_divide(z9),
+        "clean_divide_2^20_by_zerofier_2^10": lambda: d10.clean_divide(z10),
+        "zerofier_2^14": lambda: poly.zerofier(pts14),
+        "batch_evaluate_2^14_on_2^14": lambda: e14.batch_evaluate(pts14e),
+        "fast_interpolate_2^15": lambda: poly.fast_interpolate(pts15, vals15),
+        "fast_modular_coset_interpolate_2^16_mod_2^9":
+            lambda: poly.fast_modular_coset_interpolate(cw16, seven, mod9),
+        "coset_extrapolate_2^18_to_2^10": lambda: poly.coset_extrapolate(
+            seven, cw18, pts10),
+        "batch_coset_extrapolate_8x2^20_to_16_xfe":
+            lambda: poly.batch_coset_extrapolate(seven, N, cw8, xpts16),
+        "reduce_2^14_by_2^9": lambda: r14.reduce(mod9),
+        "formal_power_series_inverse_newton_2^10":
+            lambda: f10.formal_power_series_inverse_newton(1 << 10),
+        "barycentric_evaluate_2^22_at_xfe":
+            lambda: polynomial.barycentric_evaluate(cw22, xz),
+    }
+    evals = None
+
+    def path():
+        nonlocal evals
+        out = {name: fn() for name, fn in ops.items()}
+        evals = out["fast_coset_evaluate_2^20_on_2^22"]
+        out["fast_coset_interpolate_2^22"] = poly.fast_coset_interpolate(
+            seven, evals)
+        return out
+
+    got, launches = run_path(counters, path)
+    require_launched("polynomial", launches)
+    ops["fast_coset_interpolate_2^22"] = (
+        lambda: poly.fast_coset_interpolate(seven, evals))
+
+    # every result against the host alone (numpy and the native core); the
+    # 8 codewords' extrapolation at 2^16 a codeword (on the host, each
+    # codeword's reduction loops over 2^20 / 2^8 chunks in numpy: minutes),
+    # its full width against poly_batch on the card below
+    width = min(1 << 16, N)
+    narrow = {"batch_coset_extrapolate_8x2^20_to_16_xfe":
+              lambda: poly.batch_coset_extrapolate(seven, width,
+                                                   cw8[:8 * width], xpts16)}
+    host_only_ms = {}
+    for name, fn in narrow.items():
+        got[name + "_at_2^16"] = fn()
+    with host_routes():
+        for name, fn in ops.items():
+            if name in narrow:
+                name, fn = name + "_at_2^16", narrow[name]
+            t0 = time.perf_counter()
+            want = fn()
+            host_only_ms[name] = (time.perf_counter() - t0) * 1e3
+            require_words(name, got[name], want)
+    xcw = poly_batch.batch_coset_extrapolate_xfe(
+        cw8.reshape(8, N), 7, np.array([words(x) for x in xpts16]),
+        device=ntt.DEVICE)
+    if not np.array_equal(
+            words(got["batch_coset_extrapolate_8x2^20_to_16_xfe"]),
+            xcw.reshape(-1)):
+        raise AssertionError("batch_coset_extrapolate != "
+                             "batch_coset_extrapolate_xfe")
+    # and by an independent check
+    horner = native.horner_points
+    z = int(r(()))
+    for a, b, name in ((*m14, "fast_multiply_deg_2^14-1"),
+                       (*m20, "fast_multiply_deg_2^20-1")):
+        want = a.evaluate(bfe(z)) * b.evaluate(bfe(z))
+        if got[name].evaluate(bfe(z)) != want:
+            raise AssertionError(f"{name}: f(z) g(z) != (f g)(z)")
+    if got["fast_coset_interpolate_2^22"] != c20:
+        raise AssertionError("fast_coset_interpolate(fast_coset_evaluate(p)) "
+                             "!= p")
+    lde = poly_batch.batch_coset_evaluate(c20.to_array()[None], N * E,
+                                          device=ntt.DEVICE)[0]
+    if not np.array_equal(words(got["fast_coset_evaluate_2^20_on_2^22"]), lde):
+        raise AssertionError("fast_coset_evaluate != batch_coset_evaluate")
+    if got["clean_divide_2^12_by_zerofier_2^9"] != q12 or \
+            got["clean_divide_2^20_by_zerofier_2^10"] != q20:
+        raise AssertionError("clean_divide(q z, z) != q")
+    zero = got["zerofier_2^14"]
+    if zero.degree() != 1 << 14 or not zero.leading_coefficient().is_one() \
+            or horner(zero.to_array(), pts14).any():
+        raise AssertionError("the zerofier does not vanish on its points")
+    if not np.array_equal(words(got["batch_evaluate_2^14_on_2^14"]),
+                          horner(e14.to_array(), pts14e)):
+        raise AssertionError("batch_evaluate != Horner")
+    if not np.array_equal(horner(got["fast_interpolate_2^15"].to_array(),
+                                 pts15), vals15):
+        raise AssertionError("the interpolant misses its values")
+    with host_routes():
+        want_fmci = poly.fast_coset_interpolate(seven, cw16).reduce(mod9)
+        want_ext = poly._naive_coset_extrapolate(seven, cw18, pts10)
+    require_words("fast_modular_coset_interpolate", want_fmci,
+                  got["fast_modular_coset_interpolate_2^16_mod_2^9"])
+    require_words("coset_extrapolate vs _naive_coset_extrapolate", want_ext,
+                  got["coset_extrapolate_2^18_to_2^10"])
+    if not np.array_equal(words(got["coset_extrapolate_2^18_to_2^10"]),
+                          poly_batch.batch_coset_extrapolate(
+                              cw18[None], 7, pts10, device=ntt.DEVICE)[0]):
+        raise AssertionError("coset_extrapolate != batch_coset_extrapolate")
+    inv = got["formal_power_series_inverse_newton_2^10"]
+    if not (f10 * inv).mod_x_to_the_n(1 << 10).is_one():
+        raise AssertionError("f * f^-1 != 1 mod x^(2^10)")
+    with card_routes():
+        pin = polynomial_pin(port_namespace())
+    if pin != PINNED_POLYNOMIAL:
+        raise AssertionError(f"polynomial pin {pin} != {PINNED_POLYNOMIAL}")
+
+    # device busy ms: the largest of three profiles. torch.profiler drops
+    # device records of some of these calls (a dropped record only lowers
+    # the sum), so each profile also counts its records of the port's
+    # kernels against the wrappers' launches in one call: fewer records
+    # than launches mark the time incomplete
+    timed = {}
+    for name, fn in ops.items():
+        runs = wall_times(fn, 3, warmup=0)
+        for c in counters:
+            c.launches = 0
+        busy = [device_breakdown(fn) for _ in range(3)]
+        launched = sum(c.launches for c in counters) // 6  # 2 calls each
+        records = max(sum(k["calls"] for k in b["kernels"]
+                          if any(o in k["name"] for o in OWN_KERNELS))
+                      for b in busy)
+        timed[name] = {"host_ms": statistics.median(runs),
+                       "host_ms_runs": runs,
+                       "device_ms": max(b["device_busy_ms"] for b in busy),
+                       "device_ms_profiles": [b["device_busy_ms"]
+                                              for b in busy],
+                       "device_ms_complete": records >= launched,
+                       "kernel_launches": launched,
+                       "kernel_records": records,
+                       "host_only_ms": host_only_ms.get(name)}
+    sweep = phase_polynomial_sweep(rng)
+    emit("polynomial", native_core=native.available(),
+         native_library=native.library_path().name, launches=launches,
+         pinned=PINNED_POLYNOMIAL, ops=timed,
+         host_only_narrow_ms={n + "_at_2^16": host_only_ms[n + "_at_2^16"]
+                              for n in narrow},
+         sweep=sweep)
+    return {"launches": launches, "ops": timed, "sweep": sweep}
+
+
 def phase_probe_pass(rng) -> dict:
     """K4 against its twin, then the pass probe's path (K3 and K4)."""
     from twenty_first_tpu_torch.math import gf, ntt
@@ -1377,9 +1792,10 @@ def main() -> None:
     batch = phase_tip5_batch(rng, tables)
     from twenty_first_tpu_torch.ops import poly_cuda
 
-    poly = phase_poly_batch(rng, (
-        ntt_cuda.ntt_local_pass, poly_cuda.coset_extrapolate_fold,
-        poly_cuda.batch_inversion, poly_cuda.gf_pointwise))
+    poly_counters = (ntt_cuda.ntt_local_pass, poly_cuda.coset_extrapolate_fold,
+                     poly_cuda.batch_inversion, poly_cuda.gf_pointwise)
+    poly = phase_poly_batch(rng, poly_counters)
+    engine = phase_polynomial(poly_counters)["launches"]
     probe_pass = phase_probe_pass(rng)
     probe_alu = phase_probe_alu(rng)
     rate = probe_alu["instructions_per_s"]
@@ -1433,11 +1849,13 @@ def main() -> None:
          "launches": launches["ntt_local_pass"]
                      + merkle["ntt_local_pass"]
                      + poly["launches"]["ntt_local_pass"]
+                     + engine["ntt_local_pass"]
                      + probe_pass["launches"]["ntt_local_pass"],
          "launches_by_path": {
              "slice": launches["ntt_local_pass"],
              "merkle_objects": merkle["ntt_local_pass"],
              "poly_batch": poly["launches"]["ntt_local_pass"],
+             "polynomial": engine["ntt_local_pass"],
              "probe_pass": probe_pass["launches"]["ntt_local_pass"]},
          "t7_launches_per_pass": probe_pass["k3_per_tile_launches"],
          **k3, **NO_LIBRARY},
@@ -1457,13 +1875,21 @@ def main() -> None:
                      "(_coset_extrapolate_pow_core); :226 "
                      "(_coset_extrapolate_xfe_pow_core); plain jnp, no "
                      "Pallas kernel",
-         "launches": poly["launches"]["coset_extrapolate_fold"],
+         "launches": (poly["launches"]["coset_extrapolate_fold"]
+                      + engine["coset_extrapolate_fold"]),
+         "launches_by_path": {
+             "poly_batch": poly["launches"]["coset_extrapolate_fold"],
+             "polynomial": engine["coset_extrapolate_fold"]},
          **poly["k6"], **NO_LIBRARY},
         {"name": "batch_inversion", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/poly.cu",
          "replaces": "twenty_first_tpu/math/gf.py:503 (batch_inversion); "
                      "plain jnp, no Pallas kernel",
-         "launches": poly["launches"]["batch_inversion"],
+         "launches": (poly["launches"]["batch_inversion"]
+                      + engine["batch_inversion"]),
+         "launches_by_path": {
+             "poly_batch": poly["launches"]["batch_inversion"],
+             "polynomial": engine["batch_inversion"]},
          **poly["k7"], **NO_LIBRARY},
         {"name": "gf_pointwise", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/poly.cu",
@@ -1471,7 +1897,11 @@ def main() -> None:
                      "(mul_base); twenty_first_tpu/math/gf.py:444 "
                      "(inverse_or_zero) and gf.mul; plain jnp, no Pallas "
                      "kernel",
-         "launches": poly["launches"]["gf_pointwise"],
+         "launches": (poly["launches"]["gf_pointwise"]
+                      + engine["gf_pointwise"]),
+         "launches_by_path": {
+             "poly_batch": poly["launches"]["gf_pointwise"],
+             "polynomial": engine["gf_pointwise"]},
          **poly["k8"], **NO_LIBRARY},
     ]
     print(smi, flush=True)

@@ -476,6 +476,11 @@ def test_port_never_imports_jax():
             "twenty_first_tpu_torch.math.xgf_numpy",
             "twenty_first_tpu_torch.math.ntt",
             "twenty_first_tpu_torch.math.poly_batch",
+            "twenty_first_tpu_torch.math",
+            "twenty_first_tpu_torch.math.field_list",
+            "twenty_first_tpu_torch.math.zerofier_tree",
+            "twenty_first_tpu_torch.math.polynomial",
+            "twenty_first_tpu_torch.native",
             "twenty_first_tpu_torch.errors",
             "twenty_first_tpu_torch.config",
             "twenty_first_tpu_torch.math.b_field_element",

@@ -184,3 +184,134 @@ def test_local_pass_rejects_bad_input(bad):
         kwargs["out"] = torch.empty(1, 8, 4, dtype=torch.int64)
     with pytest.raises(ValueError):
         ntt_cuda.ntt_local_pass(x, tw, **kwargs)
+
+
+# -- the scalar-object API, the host transform and the crossover routes ----
+
+
+def test_object_api_matches_jax_repro():
+    """ntt.ntt over a list of BFieldElement (ntt.rs:67): the port raised
+    AttributeError ('list' object has no attribute 'shape'); the JAX
+    package's values, as tests/test_ntt.py pins them."""
+    from twenty_first_tpu.math.b_field_element import bfe as jbfe
+    from twenty_first_tpu_torch.math.b_field_element import bfe
+
+    want = jntt.ntt([jbfe(v) for v in (1, 4, 0, 0)])
+    got = ntt.ntt([bfe(v) for v in (1, 4, 0, 0)])
+    assert [e.value() for e in got] == [e.value() for e in want] == [
+        5, 1125899906842625, 18446744069414584318, 18445618169507741698]
+    assert ntt.intt(got) == [bfe(v) for v in (1, 4, 0, 0)]
+    assert ntt.ntt([]) == [] and ntt.intt([]) == []
+    single = [bfe(99)]
+    out = ntt.ntt(single)
+    assert out == single and out is not single
+    with pytest.raises(ValueError):
+        ntt.ntt(single, post=gf.from_u64([1]))
+    with pytest.raises(ntt.NttDomainError):
+        ntt.ntt([bfe(1)] * 3)
+
+
+@pytest.mark.parametrize("n", [2, 16, 512])
+def test_object_api_xfe_and_bfe_match_jax(n, monkeypatch):
+    from twenty_first_tpu.math.b_field_element import bfe as jbfe
+    from twenty_first_tpu.math.x_field_element import xfe as jxfe
+    from twenty_first_tpu_torch.math.b_field_element import bfe
+    from twenty_first_tpu_torch.math.x_field_element import xfe
+
+    monkeypatch.setattr(ntt, "DEVICE", "cpu")
+    rows = _rand((n, 3))
+    for limit in (ntt.HOST_NTT_MAX_ELEMS, 0):  # host, then "the card"
+        monkeypatch.setattr(ntt, "HOST_NTT_MAX_ELEMS", limit)
+        for inverse in (False, True):
+            got = ntt.ntt([xfe(tuple(int(v) for v in r)) for r in rows],
+                          inverse=inverse)
+            want = jntt.ntt([jxfe(tuple(int(v) for v in r)) for r in rows],
+                            inverse=inverse)
+            assert [tuple(c.value() for c in e.coefficients) for e in got] \
+                == [tuple(c.value() for c in e.coefficients) for e in want]
+            got = ntt.ntt([bfe(int(v)) for v in rows[:, 0]], inverse)
+            want = jntt.ntt([jbfe(int(v)) for v in rows[:, 0]], inverse)
+            assert [e.value() for e in got] == [e.value() for e in want]
+
+
+@pytest.mark.parametrize("length", [0, 1, 2, 8, 64])
+def test_table_helpers_match_jax(length):
+    assert ntt.swap_indices(length) == jntt.swap_indices(length)
+    from twenty_first_tpu.math.b_field_element import bfe as jbfe
+    from twenty_first_tpu_torch.math.b_field_element import bfe
+
+    if length:
+        root = ntt.PRIMITIVE_ROOTS[length]
+        for arg, jarg in ((root, root), (bfe(root), jbfe(root))):
+            got = ntt.twiddle_factors(length, arg)
+            want = jntt.twiddle_factors(length, jarg)
+            assert [t.tolist() for t in got] == [t.tolist() for t in want]
+    with pytest.raises(ntt.NttDomainError):
+        ntt.swap_indices(6)
+
+
+@pytest.mark.parametrize("native", ["1", "0"])
+@pytest.mark.parametrize("shape", [(1,), (4,), (3, 128), (2, 1 << 9), (0,)])
+def test_ntt_host_matches_jax(shape, native, monkeypatch):
+    """The numpy radix-2 form (and, from 2^8 elements, the native core's row
+    NTT) against the JAX package's ntt_host; both equal the device path."""
+    monkeypatch.setenv("TWENTY_FIRST_TPU_NATIVE_HOST", native)
+    x = _rand(shape)
+    for inverse in (False, True):
+        got = ntt.ntt_host(x, inverse)
+        np.testing.assert_array_equal(got, jntt.ntt_host(x, inverse))
+        np.testing.assert_array_equal(
+            got, ntt.ntt_values(x, inverse, device="cpu"))
+    assert ntt._bit_reverse_permutation(5).tolist() == \
+        jntt._bit_reverse_permutation(5).tolist()
+    for log_n in (1, 4, 9):
+        for inverse in (False, True):
+            assert [t.tolist() for t in ntt._twiddles_host(log_n, inverse)] \
+                == [t.tolist() for t in jntt._twiddles_host(log_n, inverse)]
+
+
+@pytest.mark.parametrize("xfield", [False, True])
+@pytest.mark.parametrize("divide", [False, True])
+def test_routed_convolutions_match_jax_on_both_sides(xfield, divide,
+                                                     monkeypatch):
+    """routed_conv_values and the routed table forms: the host round trip
+    at the default crossover, ntt.DEVICE ("cpu" here) above it, both equal
+    to the JAX package's conv_values."""
+    monkeypatch.setattr(ntt, "DEVICE", "cpu")
+    shape = (2, 64, 3) if xfield else (2, 64)
+    a, b = _rand(shape), _rand(shape)
+    b[0, 3] = 0  # a zero transform value divides to 0 in both
+    table = _rand((64, 3) if xfield else (64,))
+    want = jntt.conv_values(a, b, xfield=xfield, divide=divide)
+    jt = jntt.conv_table_prepare(table, xfield=xfield)
+    want_t = jntt.conv_table_values(a, jt, xfield=xfield,
+                                    table_xfield=xfield)
+    for limit in (1 << 20, 0):
+        monkeypatch.setattr(ntt, "HOST_CONV_MAX_ELEMS", limit)
+        got = ntt.routed_conv_values(a, b, xfield=xfield, divide=divide)
+        np.testing.assert_array_equal(got, want)
+        t = ntt.routed_conv_table_prepare(table, xfield=xfield)
+        assert isinstance(t, ntt.ConvTable) == (limit == 0)
+        np.testing.assert_array_equal(
+            ntt.routed_conv_table_values(a, t, xfield=xfield,
+                                         table_xfield=xfield), want_t)
+    monkeypatch.setattr(ntt, "HOST_CONV_MAX_ELEMS", 1 << 20)
+    with pytest.raises(ntt.NttDomainError):
+        ntt.routed_conv_values(a[..., :3] if not xfield else a[:, :3],
+                               b[..., :3] if not xfield else b[:, :3],
+                               xfield=xfield)
+
+
+def test_routed_ntt_values_cut_and_default_device(monkeypatch):
+    """Up to HOST_NTT_MAX_ELEMS elements on the host, above on ntt.DEVICE:
+    the default, "cuda", raises on a machine without a card."""
+    x = _rand((2, 256))
+    want = jntt.ntt_values(x)
+    np.testing.assert_array_equal(ntt.routed_ntt_values(x), want)
+    monkeypatch.setattr(ntt, "HOST_NTT_MAX_ELEMS", 256)
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            ntt.routed_ntt_values(x)
+    monkeypatch.setattr(ntt, "DEVICE", "cpu")
+    np.testing.assert_array_equal(ntt.routed_ntt_values(x), want)
+    np.testing.assert_array_equal(ntt.routed_ntt_values(x[:, :1]), x[:, :1])

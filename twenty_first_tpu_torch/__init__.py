@@ -14,6 +14,14 @@ Layout, each module named after its counterpart in the JAX package:
   and the NTT-domain convolutions;
 * ``math/poly_batch.py``: batch-first polynomial ops (coset LDE, products,
   barycentric evaluation, out-of-domain extrapolation);
+* ``math/polynomial.py``, ``math/zerofier_tree.py``, ``math/field_list.py``:
+  the polynomial engine's object API (``Polynomial``, ``ZerofierTree``,
+  ``FieldElements``), host logic over numpy and the native core that sends
+  work above its host/device crossovers to the card (``ntt.routed_*``,
+  ``ntt.DEVICE``); ``math/ntt.py`` also has the host NTT (``ntt_host``)
+  and the scalar-object ``ntt``/``intt``;
+* ``native.py``: the port's loader of the native host core
+  (``native/twenty_first_native.cpp``, built with g++ into ``.build/``);
 * ``math/b_field_element.py``, ``math/x_field_element.py``: the scalar
   field elements (host side);
 * ``errors.py``: the JAX package's error types; ``config.py``: the

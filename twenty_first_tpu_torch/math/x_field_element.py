@@ -2,8 +2,8 @@
 
 A copy of ``twenty_first_tpu/math/x_field_element.py`` (importing that
 package would import JAX), held against it by
-``tests/test_torch_field_elements.py``, without ``shah_polynomial`` and
-``from_polynomial``, which need the polynomial engine (not ported yet).
+``tests/test_torch_field_elements.py`` and, for ``shah_polynomial`` and
+``from_polynomial``, ``tests/test_torch_polynomial.py``.
 Mirrors twenty-first/src/math/x_field_element.rs. The product formula is the
 reference's explicit reduction mod the "Shah polynomial" x^3 - x + 1
 (x_field_element.rs:512-535); the inverse uses the closed-form adjugate of the
@@ -54,6 +54,13 @@ class XFieldElement:
         root = BFieldElement.primitive_root_of_unity(n)
         return None if root is None else cls.new_const(root)
 
+    @staticmethod
+    def shah_polynomial():
+        """The defining modulus x^3 - x + 1 as a base-field Polynomial."""
+        from .polynomial import Polynomial
+
+        return Polynomial([bfe(1), bfe(-1), bfe(0), bfe(1)])
+
     # -- accessors ----------------------------------------------------------
 
     def to_digest(self):
@@ -74,6 +81,15 @@ class XFieldElement:
                 "digest is not a padded extension-field element"
             )
         return cls(values[:3])
+
+    @classmethod
+    def from_polynomial(cls, poly) -> "XFieldElement":
+        """Reduce an arbitrary base-field polynomial mod the Shah polynomial
+        (x_field_element.rs From<Polynomial> impl)."""
+        reduced = poly % cls.shah_polynomial()
+        coeffs = (list(reduced.coefficients)
+                  + [BFieldElement(0)] * EXTENSION_DEGREE)
+        return cls(coeffs[:EXTENSION_DEGREE])
 
     def increment(self, index: int) -> None:
         """Add one to coefficient `index`, in place

@@ -2,8 +2,9 @@
 
 F_p[x]/(x^3 - x + 1) with p the Goldilocks prime. Component axis is the
 LAST axis (size 3), matching XFieldElement.coefficients order (c0, c1, c2).
-A copy of the numpy forms of ``twenty_first_tpu/math/xgf_numpy.py``
-(without its native route): the product and inverse mirror the
+A copy of ``twenty_first_tpu/math/xgf_numpy.py``, whose same-shape
+products of 16 elements and more go through the native host core as
+``gf_numpy``'s do (``_native_mul``). The product and inverse mirror the
 reference's Shah-polynomial reduction and adjugate inverse
 (x_field_element.rs:512-535, :370-399). ``tests/test_torch_gf_ext.py``
 holds every function against the JAX package's.
@@ -30,10 +31,32 @@ def neg(a):
     return gfn.neg(a)
 
 
+def _native_mul(a: np.ndarray, b: np.ndarray):
+    """(..., 3) products in one native pass over the interleaved
+    components (x_field_element.rs:512-535), or None where the numpy form
+    should run (the core unavailable or switched off, broadcasting leading
+    dims, tiny arrays)."""
+    if a.shape != b.shape or a.shape[-1:] != (3,) or a.size < 48:
+        return None
+    from .. import native
+
+    lib = native.host_arithmetic()
+    if lib is None:
+        return None
+    ac, bc = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    out = np.empty_like(ac)
+    lib.gl_xfe_mul_arrays(ac.ctypes.data, bc.ctypes.data, out.ctypes.data,
+                          ac.size // 3)
+    return out
+
+
 def mul(a, b):
     """(..., 3) x (..., 3) -> (..., 3), broadcastable leading dims."""
     a = np.asarray(a, dtype=np.uint64)
     b = np.asarray(b, dtype=np.uint64)
+    fast = _native_mul(a, b)
+    if fast is not None:
+        return fast
     s0, s1, s2 = a[..., 0], a[..., 1], a[..., 2]
     o0, o1, o2 = b[..., 0], b[..., 1], b[..., 2]
     # r0 = s0*o0 - s2*o1 - s1*o2
