@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 It builds the hand-written kernels from twenty_first_tpu_torch/csrc with
 nvcc, holds each against its plain PyTorch twin on the card (exact
 equality: this is integer field arithmetic), reproduces values pinned from
-the JAX reference, and drives seven paths, each with every launch counter
+the JAX reference, and drives nine paths, each with every launch counter
 set to 0 just before it and read just after:
 
 * the flagship step (W = 8 trace columns, n = 2^20, expansion 4: a
@@ -45,6 +45,20 @@ set to 0 just before it and read just after:
   times the host against the card for one-shot transforms,
   convolutions, batched row products and batch inversions, beside the
   crossovers chosen;
+* the host layers (the native host core must be loaded): Tip5.hash_batch
+  of 2^12 objects whose BFieldCodec encodings take every codec type (K1),
+  each equal to the scalar Tip5.hash and a sample to its pure-Python
+  oracle; MerkleTree.new over host leafs above HOST_MERKLE_MAX_LEAFS (K2)
+  and at it (the host route, no K2), roots equal to the native core's;
+  verify of 160 openings timed; the lattice KEM's round trip and its
+  refusal of a tampered ciphertext; InverseTip5 undoing K1 on a batch;
+  the Merkle crossover sweep, host against card at 2^1..2^22 leafs;
+* NTT lengths from 2^25, three passes of K3 a transform: ntt and intt at
+  2^25 and 2^28 equal to the plain twins on the card element by element,
+  device times and peak memory at 2^25, 2^28 and 2^30, then the largest
+  length that fits the card beside its output (2^32 the target): a delta's
+  transform (X[k + 1] = X[k] w), the round trip, and four outputs of
+  random input evaluated directly;
 * the NTT pass probe over 2^24 elements (K3 and K4);
 * the ALU probe, chains of lazy field ops (K5) in both forms.
 
@@ -1378,27 +1392,13 @@ def require_words(what: str, got, want) -> None:
                              f"host's differ")
 
 
-def crossover(host: dict, card: dict) -> int | None:
-    """The largest size at which the host is at least as fast as the card
-    (the card wins at every size above it); None if the card wins at
-    every size."""
-    return max((n for n in host if host[n] <= card[n]), default=None)
-
-
-def wall_times(fn, reps: int, warmup: int = 1) -> list:
-    """Host milliseconds of each fn() call up to the device's end
-    (probes/timing.py)."""
-    from twenty_first_tpu_torch.probes import timing
-
-    return timing.wall_times(fn, reps, warmup)
-
-
 def phase_polynomial_sweep(rng) -> dict:
     """Host wall time against the card's, numpy in and out, of one-shot
     transforms, convolutions, batched row products and batch inversions;
     the measured cuts beside the chosen ones."""
     from twenty_first_tpu_torch import native
     from twenty_first_tpu_torch.math import ntt, polynomial
+    from twenty_first_tpu_torch.probes import timing
 
     rows = {"ntt": ({}, {}), "conv": ({}, {}), "inverse": ({}, {})}
     for log_n in SWEEP_LOG2:
@@ -1412,8 +1412,8 @@ def phase_polynomial_sweep(rng) -> dict:
                  lambda: ntt.conv_values(x, y, device=ntt.DEVICE)),
                 ("inverse", lambda: native.batch_inverse(inv),
                  lambda: polynomial._finv_device(inv, False))):
-            rows[name][0][n] = statistics.median(wall_times(host, 5))
-            rows[name][1][n] = statistics.median(wall_times(card, 5))
+            rows[name][0][n] = statistics.median(timing.wall_times(host, 5))
+            rows[name][1][n] = statistics.median(timing.wall_times(card, 5))
     for k, logs in ROWS_SWEEP:
         size = 1 << (k + 2)
         row_host, row_card = {}, {}
@@ -1427,10 +1427,10 @@ def phase_polynomial_sweep(rng) -> dict:
                 return polynomial.Polynomial._mul_rows(a, b, False)
 
             with host_routes():
-                host = statistics.median(wall_times(mul_rows, 3))
+                host = statistics.median(timing.wall_times(mul_rows, 3))
                 want = mul_rows()
             with card_routes():
-                card = statistics.median(wall_times(mul_rows, 3))
+                card = statistics.median(timing.wall_times(mul_rows, 3))
                 if not np.array_equal(mul_rows(), want):
                     raise AssertionError(f"_mul_rows ({m}, {a.shape[1]}): "
                                          "the card's and the host's differ")
@@ -1440,7 +1440,7 @@ def phase_polynomial_sweep(rng) -> dict:
                                       for n, v in h.items()},
                           "card_ms": {f"2^{n.bit_length() - 1}": v
                                       for n, v in c.items()},
-                          "host_up_to": crossover(h, c)}
+                          "host_up_to": timing.crossover(h, c)}
                    for name, (h, c) in rows.items()},
             "chosen": {"HOST_NTT_MAX_ELEMS": ntt.HOST_NTT_MAX_ELEMS,
                        "HOST_CONV_MAX_ELEMS": ntt.HOST_CONV_MAX_ELEMS,
@@ -1460,6 +1460,7 @@ def phase_polynomial(counters) -> dict:
     from twenty_first_tpu_torch import native
     from twenty_first_tpu_torch.math import ntt, poly_batch, polynomial
     from twenty_first_tpu_torch.math.b_field_element import bfe
+    from twenty_first_tpu_torch.probes import timing
 
     if not native.available():
         raise AssertionError("polynomial: the native host core did not load")
@@ -1614,7 +1615,7 @@ def phase_polynomial(counters) -> dict:
     # than launches mark the time incomplete
     timed = {}
     for name, fn in ops.items():
-        runs = wall_times(fn, 3, warmup=0)
+        runs = timing.wall_times(fn, 3, warmup=0)
         for c in counters:
             c.launches = 0
         busy = [device_breakdown(fn) for _ in range(3)]
@@ -1639,6 +1640,350 @@ def phase_polynomial(counters) -> dict:
                               for n in narrow},
          sweep=sweep)
     return {"launches": launches, "ops": timed, "sweep": sweep}
+
+
+# the host layers' path: hash_batch's objects and the sample held against
+# the Python rounds, the batch of states InverseTip5 takes back through K1
+HASH_BATCH_OBJECTS = 1 << 12
+ORACLE_SAMPLE = 16
+#: verify of MERKLE_QUERIES openings when the scalar Tip5 ran only its
+#: pure-Python rounds (NVIDIA H100 80GB HBM3 host, 700.00 W card), the
+#: yardstick of the native dispatch
+VERIFY_MS_PYTHON_ROUNDS = 1037.5
+INVERSE_STATES = 64
+
+
+def codec_objects(rng, count: int, package: str = "twenty_first_tpu_torch"
+                  ) -> list:
+    """``count`` objects whose encodings take every codec type of
+    ``math/bfield_codec.py`` in turn, from ``rng``: base and extension
+    field elements, digests, u64 ints, bools, vectors of field elements
+    and of digests, base and extension polynomials, a @bfield_codec struct
+    (u32, i64, u128, i8, Option, tuple and array fields) and enum.
+    ``package`` names the package whose types make them (the cuda-marked
+    tests hash the same objects through the JAX package's)."""
+    import importlib
+
+    codec = importlib.import_module(f"{package}.math.bfield_codec")
+    bfe = importlib.import_module(f"{package}.math.b_field_element").bfe
+    xfe = importlib.import_module(f"{package}.math.x_field_element").xfe
+    poly = importlib.import_module(f"{package}.math.polynomial").Polynomial
+    digest = importlib.import_module(f"{package}.tip5.digest").Digest
+
+    @codec.bfield_codec(fields=[
+        ("a", codec.U32), ("b", codec.I64), ("c", codec.Opt(codec.XFE)),
+        ("d", codec.Tup(codec.U8, codec.Vec_(codec.DIGEST))),
+        ("e", codec.Arr(codec.BFE, 3)), ("f", codec.U128), ("g", codec.I8)])
+    class Record:
+        def __init__(self, **fields):
+            self.__dict__.update(fields)
+
+    @codec.bfield_codec(variants=[("Empty", []), ("Value", [("v", codec.U16)]),
+                                  ("Flags", [("f", codec.Vec_(codec.BOOL))])])
+    class Kind:
+        def __init__(self, variant, **fields):
+            self.variant = variant
+            self.__dict__.update(fields)
+
+    makers = [  # each from 12 random words w and a size k < 12
+        lambda w, k: bfe(w[0]),
+        lambda w, k: xfe(tuple(w[:3])),
+        lambda w, k: digest(w[:5]),
+        lambda w, k: w[1],
+        lambda w, k: bool(w[2] & 1),
+        lambda w, k: [bfe(v) for v in w[:1 + k]],
+        lambda w, k: [digest(w[:5]), digest(w[5:10])][:1 + k % 2],
+        lambda w, k: poly([bfe(v) for v in w[:k]]),
+        lambda w, k: poly([xfe(tuple(w[j:j + 3])) for j in range(k % 4)]),
+        lambda w, k: Record(a=w[0] & 0xFFFFFFFF, b=(w[1] >> 1) - (1 << 62),
+                            c=None if k % 2 else xfe(w[2]),
+                            d=(w[3] & 0xFF, [digest(w[4:9])][:k % 2]),
+                            e=[bfe(v) for v in w[9:12]],
+                            f=(w[0] << 64) | w[1], g=(w[2] & 0xFF) - 128),
+        lambda w, k: [Kind("Empty"), Kind("Value", v=w[0] & 0xFFFF),
+                      Kind("Flags", f=[bool(v & 1) for v in w[:k]])][k % 3],
+    ]
+    words = rng.integers(0, P, size=(count, 12), dtype=np.uint64)
+    sizes = rng.integers(0, 12, size=count)
+    return [makers[i % len(makers)]([int(v) for v in words[i]], int(sizes[i]))
+            for i in range(count)]
+
+
+@contextlib.contextmanager
+def python_rounds():
+    """The scalar Tip5's pure-Python rounds (its oracle) inside the block:
+    the native core reported as unavailable."""
+    from twenty_first_tpu_torch import native
+
+    saved = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = saved
+
+
+def phase_host_layers(counters) -> dict:
+    """The host layers a prover and a verifier call: Tip5.hash and
+    hash_batch of encodings of every codec type (K1), verify of 160
+    openings on the native core, MerkleTree.new on both sides of
+    HOST_MERKLE_MAX_LEAFS (K2 above it) with the crossover sweep
+    (probes/merkle_probe.py), the lattice KEM, and InverseTip5 undoing K1
+    on a batch."""
+    from twenty_first_tpu_torch import native
+    from twenty_first_tpu_torch.math import gf, lattice
+    from twenty_first_tpu_torch.probes import merkle_probe
+    from twenty_first_tpu_torch.tip5 import InverseTip5, Tip5, permutation
+    from twenty_first_tpu_torch.util_types import merkle_tree
+    from twenty_first_tpu_torch.util_types.merkle_tree import MerkleTree
+
+    if not native.available():
+        raise RuntimeError("the native host core did not load")
+    rng = np.random.default_rng(11)
+    objects = codec_objects(rng, HASH_BATCH_OBJECTS)
+    cut = merkle_tree.HOST_MERKLE_MAX_LEAFS
+    above = rng.integers(0, P, size=(2 * cut, 5), dtype=np.uint64)
+    at_cut = above[:cut].copy()
+    big = random_field(rng, (N * E, 5))
+    states = random_field(rng, (INVERSE_STATES, 16))
+    key_rand, enc_rand = (bytes(rng.integers(0, 256, 32, dtype=np.uint8))
+                          for _ in "ke")
+    indices = [int(i) for i in rng.integers(0, N * E, MERKLE_QUERIES)]
+
+    def path():
+        return {"hashes": Tip5.hash_batch(objects),
+                "above": MerkleTree.new(above),
+                "big": MerkleTree.new(big),
+                "permuted": permutation.permutation(states)}
+
+    got, launches = run_path(counters, path)
+    require_launched("host_layers", launches)
+    # hash_batch: each result the scalar hash's, a sample the oracle's
+    scalar = [Tip5.hash(v) for v in objects]
+    if got["hashes"] != scalar:
+        bad = sum(a != b for a, b in zip(got["hashes"], scalar))
+        raise AssertionError(f"hash_batch != scalar hash in {bad} of "
+                             f"{len(objects)}")
+    with python_rounds():
+        oracle = [Tip5.hash(v) for v in objects[:ORACLE_SAMPLE]]
+    if oracle != scalar[:ORACLE_SAMPLE]:
+        raise AssertionError("the native scalar hash != the Python rounds")
+    hash_batch_ms = wall_ms(lambda: Tip5.hash_batch(objects), 3)
+    t0 = time.perf_counter()
+    for v in objects:
+        Tip5.hash(v)
+    hash_host_ms = (time.perf_counter() - t0) * 1e3
+    # the Merkle tree on both sides of the cut: the host route's root is
+    # the native core's, K2's above the cut too
+    below, counts = run_path(counters, lambda: MerkleTree.new(at_cut))
+    if counts["merkle_level"] or below._nodes.device.type != "cuda":
+        raise AssertionError(f"{cut} host leafs: {counts}, nodes on "
+                             f"{below._nodes.device}")
+    for tree, leafs in ((below, at_cut), (got["above"], above)):
+        if tree.root() != MerkleTree.frugal_root(leafs) or \
+                tree.root().to_array().tolist() != \
+                native.tip5_merkle_root(leafs).tolist():
+            raise AssertionError(f"Merkle root of {len(leafs)} leafs != the "
+                                 "native core's")
+    # verify of MERKLE_QUERIES openings on the native core
+    tree = got["big"]
+    proof = tree.inclusion_proof_for_leaf_indices(indices)
+    t0 = time.perf_counter()
+    verified = proof.verify(tree.root())
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    if not verified:
+        raise AssertionError("verify refused an honest proof")
+    # the lattice KEM
+    t0 = time.perf_counter()
+    sk, pk = lattice.keygen(key_rand)
+    shared, ct = lattice.enc(pk, enc_rand)
+    opened = lattice.dec(sk, ct)
+    kem_ms = (time.perf_counter() - t0) * 1e3
+    bad = ct.bg.elements.copy()
+    bad[0, 0] ^= np.uint64(1)
+    if opened != shared or lattice.dec(sk, lattice.Ciphertext(
+            bg=lattice.ModuleElement(bad), bga_m=ct.bga_m)) is not None:
+        raise AssertionError("the KEM's round trip or its refusal failed")
+    # InverseTip5 takes K1's permutation back, state by state
+    for row, out in zip(gf.to_u64(states).tolist(),
+                        gf.to_u64(got["permuted"]).tolist()):
+        inv = InverseTip5(out)
+        inv.inv_permutation()
+        if [e.value() for e in inv.state] != row:
+            raise AssertionError("InverseTip5 does not undo K1")
+    sweep = merkle_probe.sweep(rng)
+    emit("host_layers", launches=launches, objects=len(objects),
+         hash_batch_wall_ms=hash_batch_ms,
+         hash_scalar_host_ms=hash_host_ms, oracle_sample=ORACLE_SAMPLE,
+         verify_openings=MERKLE_QUERIES, verify_host_ms=verify_ms,
+         verify_host_ms_python_rounds=VERIFY_MS_PYTHON_ROUNDS,
+         merkle_cut=cut,
+         merkle_below_k2_launches=counts["merkle_level"], kem_host_ms=kem_ms,
+         inverse_states=INVERSE_STATES, merkle_sweep=sweep)
+    return {"launches": launches, "sweep": sweep}
+
+
+# the large NTT: full-output checks against the plain twin, three-pass
+# times, and the largest length that fits the card beside its output
+NTT_LARGE_CHECKED = (25, 28)
+NTT_LARGE_TIMED = (25, 28, 30)
+NTT_LARGE_TARGET = 32
+RANDOM_CHUNK = 1 << 26
+
+
+def random_chunks(n: int, seed: int):
+    """(offset, chunk) pairs of n random canonical field words on the card
+    from ``seed``, RANDOM_CHUNK at a time: the same words for the same n
+    and seed, so a check can make them again instead of keeping a copy.
+    The high word stays below 2^32 - 1, so every value is below p."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    for s in range(0, n, RANDOM_CHUNK):
+        m = min(RANDOM_CHUNK, n - s)
+        hi = torch.randint(0, (1 << 32) - 1, (m,), generator=g,
+                           device="cuda", dtype=torch.int64)
+        lo = torch.randint(0, 1 << 32, (m,), generator=g, device="cuda",
+                           dtype=torch.int64)
+        yield s, (hi << 32) | lo
+
+
+def random_on_card(n: int, seed: int, out=None):
+    x = torch.empty(n, dtype=torch.int64, device="cuda") if out is None \
+        else out
+    for s, chunk in random_chunks(n, seed):
+        x[s:s + chunk.numel()] = chunk
+    return x
+
+
+def field_sum(v):
+    """The field sum of a power-of-two number of carrier words, as a
+    python int (plain torch, by halves)."""
+    from twenty_first_tpu_torch.math import gf
+
+    while v.numel() > 1:
+        h = v.numel() // 2
+        v = gf.add(v[:h], v[h:])
+    return int(v[0]) & ((1 << 64) - 1)
+
+
+def direct_ntt(x, ks, chunk: int = 1 << 24) -> list:
+    """X[k] = sum_j x[j] w^(jk) of the (n,) carrier x for each k in ks,
+    evaluated directly by chunks of x on the card."""
+    from twenty_first_tpu_torch.math import gf, gf_numpy
+    from twenty_first_tpu_torch.math.b_field_element import PRIMITIVE_ROOTS
+
+    n = x.numel()
+    chunk = min(chunk, n)
+    out = []
+    for k in ks:
+        z = pow(PRIMITIVE_ROOTS[n], k, P)
+        powers = gf.from_u64(gf_numpy.powers(z, chunk)).to(x.device)
+        step, scale, acc = pow(z, chunk, P), 1, 0
+        for s in range(0, n, chunk):
+            acc = (acc + field_sum(gf.mul(x[s:s + chunk], powers)) * scale) % P
+            scale = scale * step % P
+        out.append(acc)
+    return out
+
+
+def ntt_bound(n: int) -> dict:
+    """bound of the three-pass transform of n elements: three passes, each
+    reading and writing n words; n/2 log n butterfly products and 3n
+    twiddle products."""
+    log_n = n.bit_length() - 1
+    return bound(3 * 16 * n, IMAD_PER_MUL * (n // 2 * log_n + 3 * n))
+
+
+def phase_ntt_large(counters) -> dict:
+    """NTT lengths from 2^25 (three passes of K3): full outputs against the
+    plain twin on the card at 2^25 and 2^28, device time and peak memory at
+    2^25, 2^28 and 2^30, then the largest length that fits the card beside
+    its output, 2^32 the target: a delta's transform (X[k] = w^k), a round
+    trip, and a few outputs of random input evaluated directly."""
+    from twenty_first_tpu_torch.math import gf, ntt
+    from twenty_first_tpu_torch.math.b_field_element import PRIMITIVE_ROOTS
+
+    n0 = 1 << NTT_LARGE_CHECKED[0]
+    x0 = random_on_card(n0, 25)
+    (y0, z0), launches = run_path(
+        counters, lambda: (ntt.ntt(x0), ntt.intt(ntt.ntt(x0))))
+    require_launched("ntt_large", launches)
+    if launches["ntt_local_pass"] != 9:
+        raise AssertionError(f"three transforms of 2^25 made {launches}")
+    require_equal("intt(ntt(x)) 2^25", z0, x0)
+    del x0, y0, z0
+    checked = {}
+    for log_n in NTT_LARGE_CHECKED:
+        n = 1 << log_n
+        x = random_on_card(n, log_n).view(1, n)
+        y = ntt.ntt(x)
+        checked[f"2^{log_n}"] = {
+            "ntt": require_equal(f"ntt 2^{log_n}", y, ntt.ntt(x, plain=True)),
+            "intt": require_equal(f"intt 2^{log_n}", ntt.intt(y),
+                                  ntt.intt(y, plain=True))}
+        del x, y
+    timed = {}
+    for log_n in NTT_LARGE_TIMED:
+        n = 1 << log_n
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        x = random_on_card(n, log_n)
+        y = torch.empty_like(x)
+        ms = cuda_ms(lambda: ntt.ntt(x, out=y), 5)
+        inv_ms = cuda_ms(lambda: ntt.intt(x, out=y), 5)
+        timed[f"2^{log_n}"] = {
+            "ms": ms, "intt_ms": inv_ms,
+            "peak_bytes": torch.cuda.max_memory_allocated() - base,
+            **ntt_bound(n)}
+        del x, y
+    # the largest length that fits: input, output and a check's chunks
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    fits = [k for k in range(NTT_LARGE_TARGET, NTT_LARGE_TIMED[-1], -1)
+            if 2 * 8 * (1 << k) + (4 << 30) <= free]
+    if not fits:
+        raise AssertionError(f"no length above 2^{NTT_LARGE_TIMED[-1]} fits "
+                             f"{free} free bytes")
+    log_n = fits[0]
+    n = 1 << log_n
+    w = PRIMITIVE_ROOTS[n]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = torch.empty(n, dtype=torch.int64, device="cuda")
+    x = torch.zeros(n, dtype=torch.int64, device="cuda")
+    x[1] = 1
+    counts = run_path(counters, lambda: ntt.ntt(x, out=y))[1]
+    del x
+    if int(y[0]) != 1 or (int(y[-1]) & ((1 << 64) - 1)) * w % P != 1:
+        raise AssertionError(f"ntt of a delta at 2^{log_n}: X[0] or X[n-1]")
+    for s in range(0, n - 1, RANDOM_CHUNK):
+        m = min(RANDOM_CHUNK, n - 1 - s)
+        require_equal(f"delta 2^{log_n} X[k+1] = X[k] w from {s}",
+                      y[s + 1:s + 1 + m], gf.mul_const(y[s:s + m], w))
+    x = random_on_card(n, log_n)
+    ms = cuda_ms(lambda: ntt.ntt(x, out=y), 3)
+    ks = [0, 1, n // 2 + 12345, n - 1]
+    direct = direct_ntt(x, ks)
+    if direct != [int(y[k]) & ((1 << 64) - 1) for k in ks]:
+        raise AssertionError(f"ntt 2^{log_n}: outputs {ks} != direct sums")
+    ntt.intt(y, out=x)
+    for s, chunk in random_chunks(n, log_n):
+        require_equal(f"intt(ntt(x)) 2^{log_n} from {s}",
+                      x[s:s + chunk.numel()], chunk)
+    peak = torch.cuda.max_memory_allocated() - base
+    del x, y
+    torch.cuda.empty_cache()
+    largest = {"log_n": log_n, "ms": ms, "peak_bytes": peak,
+               "k3_launches_a_call": counts["ntt_local_pass"],
+               "direct_indices": ks, **ntt_bound(n)}
+    emit("ntt_large", launches=launches, checked=checked, timed=timed,
+         largest=largest,
+         left_out=[f"2^{k}" for k in range(NTT_LARGE_TARGET, log_n, -1)],
+         free_bytes=free)
+    return {"launches": launches,
+            "three_pass": {k: timed[k] for k in ("2^25", "2^30")},
+            "largest": largest}
 
 
 def phase_probe_pass(rng) -> dict:
@@ -1796,6 +2141,8 @@ def main() -> None:
                      poly_cuda.batch_inversion, poly_cuda.gf_pointwise)
     poly = phase_poly_batch(rng, poly_counters)
     engine = phase_polynomial(poly_counters)["launches"]
+    host = phase_host_layers((tip5_cuda.tip5_permute, tip5_cuda.merkle_level))
+    large = phase_ntt_large((ntt_cuda.ntt_local_pass,))
     probe_pass = phase_probe_pass(rng)
     probe_alu = phase_probe_alu(rng)
     rate = probe_alu["instructions_per_s"]
@@ -1826,20 +2173,25 @@ def main() -> None:
                      f"{pallas}:383 (T5)",
          "launches": launches["tip5_permute"]
                      + merkle["tip5_permute"]
-                     + batch["launches"]["tip5_permute"],
+                     + batch["launches"]["tip5_permute"]
+                     + host["launches"]["tip5_permute"],
          "launches_by_path": {"slice": launches["tip5_permute"],
                               "merkle_objects": merkle["tip5_permute"],
-                              "tip5_batch": batch["launches"]["tip5_permute"]},
+                              "tip5_batch": batch["launches"]["tip5_permute"],
+                              "host_layers": host["launches"]["tip5_permute"]},
          **k1, **NO_LIBRARY, "trace_mode": batch["trace"]},
         {"name": "merkle_commit", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/tip5.cu",
          "replaces": f"{pallas}:262 (T2)",
          "launches": sum(path[k] for path in (launches, merkle)
-                         for k in ("merkle_level", "merkle_commit")),
+                         for k in ("merkle_level", "merkle_commit"))
+                     + host["launches"]["merkle_level"],
          "launches_by_path": {
-             path: {k: counts[k] for k in ("merkle_level", "merkle_commit")}
-             for path, counts in (("slice", launches),
-                                  ("merkle_objects", merkle))},
+             **{path: {k: counts[k] for k in ("merkle_level", "merkle_commit")}
+                for path, counts in (("slice", launches),
+                                     ("merkle_objects", merkle))},
+             "host_layers": {"merkle_level": host["launches"]["merkle_level"]}},
+         "merkle_sweep_host_up_to": host["sweep"]["host_up_to"],
          **k2, **NO_LIBRARY},
         {"name": "ntt_local_pass", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/ntt.cu",
@@ -1850,14 +2202,18 @@ def main() -> None:
                      + merkle["ntt_local_pass"]
                      + poly["launches"]["ntt_local_pass"]
                      + engine["ntt_local_pass"]
+                     + large["launches"]["ntt_local_pass"]
                      + probe_pass["launches"]["ntt_local_pass"],
          "launches_by_path": {
              "slice": launches["ntt_local_pass"],
              "merkle_objects": merkle["ntt_local_pass"],
              "poly_batch": poly["launches"]["ntt_local_pass"],
              "polynomial": engine["ntt_local_pass"],
+             "ntt_large": large["launches"]["ntt_local_pass"],
              "probe_pass": probe_pass["launches"]["ntt_local_pass"]},
          "t7_launches_per_pass": probe_pass["k3_per_tile_launches"],
+         "three_pass": large["three_pass"],
+         "largest_ntt": large["largest"],
          **k3, **NO_LIBRARY},
         {"name": "ntt_stage", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/probes.cu",

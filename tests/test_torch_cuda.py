@@ -405,3 +405,50 @@ def test_mmr_on_the_card_matches_jax(cuda, n):
     new = tmmr.MmrAccumulator.new_from_leafs(
         np.concatenate([leafs, more]), device=cuda)
     assert proof.verify(acc, new)
+
+
+def test_hash_batch_on_the_card_matches_jax(cuda):
+    """Tip5.hash_batch of objects of every codec type on K1, equal to the
+    JAX package's Tip5.hash of each."""
+    from twenty_first_tpu.tip5 import tip5 as jtip5
+    from twenty_first_tpu_torch.tip5 import Tip5
+
+    objects = chip_smoke.codec_objects(np.random.default_rng(5), 64)
+    before = tip5_cuda.tip5_permute.launches
+    got = Tip5.hash_batch(objects)
+    assert tip5_cuda.tip5_permute.launches > before
+    want = [jtip5.Tip5.hash(v) for v in chip_smoke.codec_objects(
+        np.random.default_rng(5), 64, package="twenty_first_tpu")]
+    assert [_vals(d) for d in got] == [_vals(d) for d in want]
+
+
+def test_merkle_host_cut_on_the_card(cuda):
+    """Host leafs at HOST_MERKLE_MAX_LEAFS take the host route (no K2
+    launch, the nodes on the card); twice as many take K2, a launch a
+    level; both equal the JAX package's trees."""
+    from twenty_first_tpu.util_types import merkle_tree as jmt
+    from twenty_first_tpu_torch.util_types import merkle_tree as tmt
+
+    cut = tmt.HOST_MERKLE_MAX_LEAFS
+    for n, launches in ((cut, 0), (2 * cut, (2 * cut).bit_length() - 1)):
+        leafs = _rand((n, 5))
+        before = _k2_launches()
+        tree = tmt.MerkleTree.new(leafs)
+        assert _k2_launches() == before + launches
+        assert tree._nodes.device.type == "cuda"
+        np.testing.assert_array_equal(tree.node_array(),
+                                      jmt.MerkleTree.new(leafs).node_array())
+
+
+def test_three_pass_ntt_matches_the_plain_twin(cuda):
+    """The three-pass transform at 2^25 (K3, three launches) against the
+    same route on the plain twins, and back; in place too."""
+    x = gf.from_u64(_rand((1, 1 << 25))).to(cuda)
+    before = ntt_cuda.ntt_local_pass.launches
+    y = ntt.ntt(x)
+    assert ntt_cuda.ntt_local_pass.launches == before + 3
+    assert torch.equal(y, ntt.ntt(x, plain=True))
+    assert torch.equal(ntt.intt(y), x)
+    w = x.clone()
+    assert ntt.ntt(w, out=w) is w
+    assert torch.equal(w, y)

@@ -511,7 +511,15 @@ def test_port_never_imports_jax():
             "twenty_first_tpu_torch.probes.alu_probe",
             "twenty_first_tpu_torch.probes.fold_probe",
             "twenty_first_tpu_torch.probes.inv_probe",
-            "twenty_first_tpu_torch._build", "chip_smoke"]
+            "twenty_first_tpu_torch._build",
+            "twenty_first_tpu_torch.prelude",
+            "twenty_first_tpu_torch.math.bfield_codec",
+            "twenty_first_tpu_torch.math.lattice",
+            "twenty_first_tpu_torch.math.other",
+            "twenty_first_tpu_torch.tip5.inverse",
+            "twenty_first_tpu_torch.tip5.blake3_mini",
+            "twenty_first_tpu_torch.tip5.constants",
+            "twenty_first_tpu_torch.probes.merkle_probe", "chip_smoke"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' "
               "or m.startswith(('jax.', 'jaxlib', 'twenty_first_tpu.')) "

@@ -1,9 +1,11 @@
 """The port's Merkle tree (``util_types/merkle_tree.py``) against the JAX
 package's, exactly, on inputs made with numpy: node arrays, roots,
 authentication structures, inclusion proofs and their verdicts. On the CPU
-the port builds its trees with the plain twins of K2; the JAX package with
-its host path. The fixed cases of ``tests/test_merkle_parity.py`` run here
-through both packages."""
+the port builds its trees on the host route (host leafs up to
+``HOST_MERKLE_MAX_LEAFS``: the native core) or with the plain twins of K2
+(tensors, and host leafs above the cut); the JAX package with its host
+path. The fixed cases of ``tests/test_merkle_parity.py`` run here through
+both packages."""
 
 from types import SimpleNamespace
 
@@ -19,6 +21,7 @@ from twenty_first_tpu.tip5 import tip5 as jtip5
 from twenty_first_tpu.util_types import merkle_tree as jmt
 from twenty_first_tpu_torch import config as tconfig
 from twenty_first_tpu_torch import errors as terrors
+from twenty_first_tpu_torch import native
 from twenty_first_tpu_torch.math import b_field_element as tb
 from twenty_first_tpu_torch.math import gf
 from twenty_first_tpu_torch.ops import tip5_cuda
@@ -253,6 +256,130 @@ def test_merkle_level_out_on_cpu():
                                out=nodes[:8].to(torch.int32))
     with pytest.raises(ValueError):  # strided: every other row
         tip5_cuda.merkle_level(children, False, *tables, out=nodes[::2])
+
+
+# --- the host route below HOST_MERKLE_MAX_LEAFS ---------------------------
+
+
+def _count_routes(monkeypatch) -> dict:
+    """Counts of the host route's native calls and of K2's twin levels."""
+    counts = {"host": 0, "twin": 0}
+
+    def counted(fn, key):
+        def wrapper(*args, **kwargs):
+            counts[key] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for name in ("tip5_hash_pairs", "tip5_merkle_root"):
+        monkeypatch.setattr(native, name, counted(getattr(native, name),
+                                                  "host"))
+    monkeypatch.setattr(tip5_cuda, "merkle_level_plain",
+                        counted(tip5_cuda.merkle_level_plain, "twin"))
+    return counts
+
+
+@pytest.mark.parametrize("log_cut", [3, 5])
+@pytest.mark.parametrize("form", ["array", "digests"])
+def test_host_route_at_and_around_the_cut(log_cut, form, monkeypatch):
+    """Host leafs at and below the cut take the native core, above it K2's
+    twin; either way the tree, its frugal root and the authentication
+    structure from the leafs equal JAX's and the twin's over the same
+    leafs as a tensor, and the nodes lie on the named device."""
+    monkeypatch.setattr(tmt, "HOST_MERKLE_MAX_LEAFS", 1 << log_cut)
+    counts = _count_routes(monkeypatch)
+    for n in (1 << (log_cut - 1), 1 << log_cut, 1 << (log_cut + 1)):
+        leafs = _leafs(n)
+        given = leafs if form == "array" else [
+            tdigest.Digest.from_array(r) for r in leafs]
+        indices = [0, n // 2, n - 1]
+        jtree = jmt.MerkleTree.new(leafs)
+        twin = tmt.MerkleTree.new(gf.from_u64(leafs))
+        counts.update(host=0, twin=0)
+        tree = tmt.MerkleTree.new(given, device="cpu")
+        root = tmt.MerkleTree.frugal_root(given, device="cpu")
+        auth = tmt.MerkleTree.authentication_structure_from_leafs(
+            given, indices, device="cpu")
+        host = n <= 1 << log_cut
+        assert (counts["host"] > 0, counts["twin"] > 0) == (host, not host)
+        assert tree._nodes.device.type == "cpu"
+        np.testing.assert_array_equal(tree.node_array(), jtree.node_array())
+        assert tree == twin
+        assert _norm(root) == _norm(jtree.root()) == _norm(twin.root())
+        assert _norm(auth) == _norm(jtree.authentication_structure(indices))
+
+
+@pytest.mark.parametrize("form", ["array", "digests"])
+def test_host_leafs_without_the_native_core(form, monkeypatch):
+    """Without the native core, host leafs below the cut go to the named
+    device and take K2's twin there; the tree, its frugal root and the
+    authentication structure from the leafs still equal JAX's."""
+    monkeypatch.setattr(native, "_load", lambda: None)  # no core
+    counts = _count_routes(monkeypatch)
+    for n in (1, 2, 16):
+        assert n <= tmt.HOST_MERKLE_MAX_LEAFS
+        leafs = _leafs(n)
+        given = leafs if form == "array" else [
+            tdigest.Digest.from_array(r) for r in leafs]
+        indices = [0, n - 1]
+        jtree = jmt.MerkleTree.new(leafs)
+        tree = tmt.MerkleTree.new(given, device="cpu")
+        root = tmt.MerkleTree.frugal_root(given, device="cpu")
+        auth = tmt.MerkleTree.authentication_structure_from_leafs(
+            given, indices, device="cpu")
+        assert tree._nodes.device.type == "cpu"
+        np.testing.assert_array_equal(tree.node_array(), jtree.node_array())
+        assert _norm(root) == _norm(jtree.root())
+        assert _norm(auth) == _norm(jtree.authentication_structure(indices))
+    assert counts["host"] == 0 and counts["twin"] > 0
+
+
+def test_tensor_leafs_never_leave_their_device(monkeypatch):
+    """A CPU tensor of leafs, below the cut too, is reduced by K2's twin on
+    its device: the host route is never taken."""
+    counts = _count_routes(monkeypatch)
+    for n in (1, 2, 16):
+        leafs = _leafs(n)
+        t = gf.from_u64(leafs)
+        tree = tmt.MerkleTree.new(t, device="cuda")  # the tensor's device wins
+        root = tmt.MerkleTree.frugal_root(t, device="cuda")
+        auth = tmt.MerkleTree.authentication_structure_from_leafs(
+            t, [0], device="cuda")
+        assert tree._nodes.device.type == "cpu"
+        np.testing.assert_array_equal(tree.node_array(),
+                                      jmt.MerkleTree.new(leafs).node_array())
+        assert _norm(root) == _norm(tree.root())
+        assert _norm(auth) == _norm(tree.authentication_structure([0]))
+    assert counts["host"] == 0 and counts["twin"] > 0
+
+
+def test_host_route_nodes_go_to_the_named_device():
+    """The host route hashes on the host, then places the nodes on the
+    named device: the card by default, which raises on a machine without
+    one (the route never looks for a card)."""
+    leafs = _leafs(4)
+    assert tmt.HOST_MERKLE_MAX_LEAFS >= 4
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            tmt.MerkleTree.new(leafs)
+    assert tmt.MerkleTree.new(leafs, device="cpu")._nodes.device.type == "cpu"
+
+
+def test_host_cut_reads_the_jax_environment_variable():
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ("from twenty_first_tpu_torch.util_types import merkle_tree\n"
+            "print(merkle_tree.HOST_MERKLE_MAX_LEAFS)\n")
+    repo = Path(__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=repo, capture_output=True,
+        text=True, timeout=300,
+        env={"PYTHONPATH": str(repo),
+             "TWENTY_FIRST_TPU_HOST_MERKLE_MAX_LEAFS": "123"})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "123"
 
 
 # --- the fixed cases of tests/test_merkle_parity.py, through both packages ---

@@ -313,6 +313,27 @@ def test_successor_proofs_match_jax(old_n, appended_n):
     assert got[1] is True
 
 
+def test_successor_proofs_without_the_native_core(monkeypatch):
+    """The small trees over host leafs that a successor proof builds take
+    the device route when the native core is not loaded, with JAX's
+    values."""
+    from twenty_first_tpu_torch import native
+    monkeypatch.setattr(native, "_load", lambda: None)  # no core
+    for old_n, appended_n in ((4, 4), (10, 22), (600, 70)):
+        words_old, words_new = _words(28, old_n), _words(29, appended_n)
+        old = tmmr.MmrAccumulator.new_from_leafs(words_old, device="cpu")
+        new = tmmr.MmrAccumulator.new_from_leafs(
+            np.concatenate([words_old, words_new]), device="cpu")
+        proof = tmmr.MmrSuccessorProof.new_from_batch_append(
+            old, [tdigest.Digest.from_array(r) for r in words_new],
+            device="cpu")
+        assert proof.verify(old, new)
+        want = jmmr.MmrSuccessorProof.new_from_batch_append(
+            jmmr.MmrAccumulator.new_from_leafs(words_old),
+            [jdigest.Digest.from_array(r) for r in words_new])
+        assert _norm(proof) == _norm(want)
+
+
 def test_successor_proof_takes_leaf_tensors():
     words_old, words_new = _words(26, 21), _words(27, 40)
     old = tmmr.MmrAccumulator.new_from_leafs(words_old, device="cpu")

@@ -82,7 +82,7 @@ def test_ntt_rejects_bad_lengths_and_tables():
     with pytest.raises(ValueError):
         ntt.ntt(torch.zeros(2, 12, dtype=torch.int64))
     with pytest.raises(ValueError):
-        ntt.ntt_tables(1 << 25, device="cpu")
+        ntt.ntt_tables(1 << 33, device="cpu")
     x = gf.from_u64(_rand((1, 64)))
     with pytest.raises(ValueError):
         ntt.ntt(x, tables=ntt.ntt_tables(64, inverse=True, device="cpu"))
@@ -109,10 +109,12 @@ def test_bad_lengths_raise_ntt_domain_error():
         ntt.ntt_values(np.zeros((2, 3), np.uint64), device="cpu")
     with pytest.raises(jntt.NttDomainError):
         jntt.ntt_values(np.zeros((2, 3), np.uint64))
-    with pytest.raises(ntt.NttDomainError, match=r"limit of 2\^24"):
-        ntt.ntt_tables(1 << 25, device="cpu")
     with pytest.raises(ntt.NttDomainError, match=r"2\^32"):
         ntt.ntt_tables((1 << 33), device="cpu")
+    with pytest.raises(jntt.NttDomainError, match=r"2\^32"):
+        jntt._check_len(1 << 33)
+    for log_n in range(33):  # every power of two up to 2^32, as in JAX
+        assert ntt._check_len(1 << log_n) == jntt._check_len(1 << log_n)
 
 
 def test_errors_copy_has_the_jax_classes():
@@ -315,3 +317,128 @@ def test_routed_ntt_values_cut_and_default_device(monkeypatch):
     monkeypatch.setattr(ntt, "DEVICE", "cpu")
     np.testing.assert_array_equal(ntt.routed_ntt_values(x), want)
     np.testing.assert_array_equal(ntt.routed_ntt_values(x[:, :1]), x[:, :1])
+
+
+# -- the limb-plane API -------------------------------------------------------
+
+
+def test_limb_api_matches_jax():
+    """gf/gf_ext to_limbs, from_limbs, const_limbs, P_LO, P_HI: uint32
+    tensors on the named device, the JAX package's planes element for
+    element."""
+    from twenty_first_tpu.math import gf as jgf
+    from twenty_first_tpu.math import gf_ext as jgf_ext
+    from twenty_first_tpu_torch.math import gf_ext
+
+    assert (gf.P_LO, gf.P_HI) == (jgf.P_LO, jgf.P_HI)
+    assert gf.P_LO.dtype == gf.P_HI.dtype == np.uint32
+    for c in (0, 1, P - 1, (1 << 32) + 5, 1 << 63):
+        assert gf.const_limbs(c) == jgf.const_limbs(c)
+    x = _rand((3, 17))
+    x.reshape(-1)[:4] = [0, 1, P - 1, (1 << 32) - 1]
+    lo, hi = gf.to_limbs(x, device="cpu")
+    jlo, jhi = jgf.to_limbs(x)
+    assert lo.dtype == hi.dtype == torch.uint32 and lo.device.type == "cpu"
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi))
+    np.testing.assert_array_equal(gf.from_limbs((lo, hi)), x)
+    np.testing.assert_array_equal(gf.from_limbs((jlo, jhi)), x)
+    xe = _rand((2, 9, 3))
+    lo, hi = gf_ext.to_limbs(xe, device="cpu")
+    jlo, jhi = jgf_ext.to_limbs(xe)
+    assert lo.shape == (2, 3, 9)
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi))
+    np.testing.assert_array_equal(gf_ext.from_limbs((lo, hi)), xe)
+    np.testing.assert_array_equal(gf_ext.from_limbs((lo, hi)),
+                                  jgf_ext.from_limbs((jlo, jhi)))
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            gf.to_limbs(x)
+
+
+@pytest.mark.parametrize("log_n", [0, 3, 13])
+def test_ntt_limbs_match_jax(log_n):
+    """ntt_limbs/intt_limbs on uint32 planes: JAX's limb transform's
+    planes, on the planes' device."""
+    from twenty_first_tpu.math import gf as jgf
+
+    x = _rand((2, 1 << log_n))
+    planes = gf.to_limbs(x, device="cpu")
+    got = ntt.ntt_limbs(planes)
+    assert got[0].dtype == torch.uint32 and got[0].shape == x.shape
+    want = jntt.ntt_limbs(jgf.to_limbs(x))
+    np.testing.assert_array_equal(gf.from_limbs(got), jgf.from_limbs(want))
+    back = ntt.intt_limbs(got)
+    np.testing.assert_array_equal(gf.from_limbs(back), x)
+
+
+# -- the three-pass route (lengths from 2^25) -------------------------------
+
+
+@pytest.mark.parametrize("log_n", range(25, 33))
+def test_three_pass_split_equals_jax(log_n):
+    log_a, log_b, log_c = ntt.three_pass_split(log_n)
+    assert (log_a, log_b, log_c) == jntt._three_step_split(log_n)
+    assert log_a + log_b + log_c == log_n
+    assert max(log_a, log_b, log_c) <= 11
+
+
+def _three_pass_tables(monkeypatch, n, inverse):
+    """Three-pass tables of a small length: the route's threshold lowered
+    to the length, so that its passes run local transforms of 2^2..2^5."""
+    monkeypatch.setattr(ntt, "THREE_PASS_LOG_N", n.bit_length() - 1)
+    tables = ntt.ntt_tables(n, inverse, "cpu")
+    monkeypatch.undo()
+    assert tables.tw3 is not None
+    return tables
+
+
+@pytest.mark.parametrize("log_n", range(6, 15))
+def test_three_pass_route_matches_jax(log_n, monkeypatch):
+    """The three-pass route, forced at 2^6..2^14, against JAX's transforms
+    and the port's one- and two-pass routes at the same lengths, with
+    post= and out= as well, in place too."""
+    n = 1 << log_n
+    x = gf.from_u64(_rand((2, n)))
+    fwd = _three_pass_tables(monkeypatch, n, False)
+    inv = _three_pass_tables(monkeypatch, n, True)
+    y = ntt.ntt(x, tables=fwd)
+    np.testing.assert_array_equal(gf.to_u64(y),
+                                  jntt.ntt_values(gf.to_u64(x)))
+    assert torch.equal(y, ntt.ntt(x))  # the default route at this length
+    z = ntt.intt(y, tables=inv)
+    np.testing.assert_array_equal(gf.to_u64(z), jntt.intt_values(gf.to_u64(y)))
+    assert torch.equal(z, x)
+    post = gf.from_u64(_rand((n,)))
+    planes = torch.zeros((2, 2 * n), dtype=torch.int64)
+    ntt.intt(y, tables=inv, post=post, out=planes[:, :n])
+    assert torch.equal(planes[:, :n], gf.mul(x, post))
+    assert not planes[:, n:].any()
+    out = torch.empty_like(x)
+    assert ntt.ntt(x, tables=fwd, post=post, out=out) is out
+    assert torch.equal(out, gf.mul(y, post))
+    for plain in (False, True):  # in place, through K3's argument checks too
+        w = x.clone()
+        assert ntt.ntt(w, tables=fwd, plain=plain, out=w) is w
+        assert torch.equal(w, y)
+        assert ntt.intt(w, tables=inv, plain=plain, out=w) is w
+        assert torch.equal(w, x)
+
+
+def test_three_pass_tables_hold_their_twiddles(monkeypatch):
+    """The three tables at 2^12 (A, B, C = 16): w_BC^(b kc), w_n^(a kc),
+    w_AB^(a kb), against powers of the length's root."""
+    from twenty_first_tpu_torch.math.b_field_element import PRIMITIVE_ROOTS
+
+    n = 1 << 12
+    t = _three_pass_tables(monkeypatch, n, False)
+    w = PRIMITIVE_ROOTS[n]
+    a = b = c = 16
+    for table, root, rows, cols in ((t.diag, pow(w, a, P), b, c),
+                                    (t.diag2, w, a, c),
+                                    (t.diag2b, pow(w, c, P), a, b)):
+        want = [[pow(root, r * k, P) for k in range(cols)]
+                for r in range(rows)]
+        assert gf.to_u64(table).reshape(rows, cols).tolist() == want
+    assert t.tw1.shape == t.tw2.shape == t.tw3.shape == (15,)

@@ -1,7 +1,7 @@
 """The port's Tip5 object API (``Digest``, ``Sponge``/``Domain``, the scalar
 ``Tip5`` sponge and its batch entry points) against the JAX package's,
-exactly, on inputs made with numpy. The port's scalar Tip5 is pure Python;
-the JAX package's takes its native host core where it is built."""
+exactly, on inputs made with numpy. Both packages' scalar Tip5 take their
+native host core where it is built."""
 
 import numpy as np
 import pytest

@@ -6,10 +6,16 @@
 // The pass: for each batch b and column c, an NTT of length t = 2^log_t
 // (1 <= log_t <= 12) over elements at in[b*in_b + c*in_c + j*in_e], written
 // in natural order to out[b*out_b + c*out_c + k*out_e], each output
-// optionally multiplied by diag[k*diag_e + c*diag_c] and by `scale`, and
-// canonical. Arbitrary strides let both four-step passes run with no
-// separate transpose: pass 1 over j2 (element stride n1, columns
-// contiguous), pass 2 over j1 (contiguous) writing k2 + n2*k1.
+// optionally multiplied by diag[b*diag_b + k*diag_e + c*diag_c], by
+// diag2[b*diag2_b + k*diag2_e + c*diag2_c] and by `scale`, and canonical.
+// Arbitrary strides let every pass run with no separate transpose: the
+// four-step's pass 1 over j2 (element stride n1, columns contiguous) and
+// pass 2 over j1 (contiguous) writing k2 + n2*k1; the three-pass
+// transform above 2^24 (math/ntt.py) over each of its three factors. The
+// diagonals are broadcast views (zero strides): the three-pass transform's
+// outer twiddle w_n^(a (kc + C kb)) is the product of two tables of at most
+// 2^22 entries, diag and diag2, where an n-entry table would not fit beside
+// a 2^32-element input and output.
 //
 // What bounds it: device memory (16 bytes an element) only if the
 // arithmetic issues fast enough. A radix-2 pass issues log_t / 2 canonical
@@ -124,6 +130,8 @@ struct Pass {
   int64_t ncols, in_e, in_c, out_e, out_c;
   const uint64_t* diag;
   int64_t diag_e, diag_c;
+  const uint64_t* diag2;
+  int64_t diag2_e, diag2_c;
   uint64_t scale;
   int swz_shift, swz_mask;  // the tile's row swizzle
 
@@ -131,8 +139,12 @@ struct Pass {
     return ((pos ^ ((pos >> swz_shift) & swz_mask)) << log_tc) + c;
   }
 
+  // DIAG2: a kernel of its own, so that the passes without a second
+  // diagonal keep their registers
+  template <bool DIAG2>
   __device__ __forceinline__ void store(uint64_t v, int k, int64_t cg) const {
     if (cg >= ncols) return;
+    if (DIAG2) v = gl::mul_red(v, diag2[k * diag2_e + cg * diag2_c]);
     if (diag != nullptr) {
       v = scale != 1 ? gl::mul_red(v, diag[k * diag_e + cg * diag_c])
                      : gl::mul(v, diag[k * diag_e + cg * diag_c]);
@@ -149,7 +161,7 @@ struct Pass {
 // The last round: k = LOG_K stages after s (M = 2^s = t / K), R / K groups
 // a thread, group i2 at residue r = i2 * (t / R) + h; outputs go to device
 // memory as k = p * M + r.
-template <int LOG_R, int LOG_K, bool INV>
+template <int LOG_R, int LOG_K, bool INV, bool DIAG2>
 __device__ __forceinline__ void last_round(const Pass& ps, uint64_t* a,
                                            const uint64_t* sh,
                                            const uint64_t* tab, int s, int c,
@@ -168,11 +180,11 @@ __device__ __forceinline__ void last_round(const Pass& ps, uint64_t* a,
     }
     dft<LOG_K, INV>(g);
 #pragma unroll
-    for (int p = 0; p < K; ++p) ps.store(g[p], (p << s) + r, cg);
+    for (int p = 0; p < K; ++p) ps.store<DIAG2>(g[p], (p << s) + r, cg);
   }
 }
 
-template <int LOG_R, bool INV>
+template <int LOG_R, bool INV, bool DIAG2>
 __device__ __forceinline__ void run_pass(const Pass& ps, uint64_t* sh,
                                          const uint64_t* tab, bool staged) {
   constexpr int R = 1 << LOG_R;
@@ -203,7 +215,7 @@ __device__ __forceinline__ void run_pass(const Pass& ps, uint64_t* sh,
   dft<LOG_R, INV>(a);
   if (log_h == 0) {  // one round: G = 0, outputs in natural order
 #pragma unroll
-    for (int p = 0; p < R; ++p) ps.store(a[p], p, cg);
+    for (int p = 0; p < R; ++p) ps.store<DIAG2>(a[p], p, cg);
     return;
   }
   const int g0 = __brev(static_cast<unsigned>(h)) >> (32 - log_h);
@@ -231,12 +243,13 @@ __device__ __forceinline__ void run_pass(const Pass& ps, uint64_t* sh,
     tab += (R - 1) << s;
   }
   switch (log_t - s) {
-    case 1: last_round<LOG_R, 1, INV>(ps, a, sh, tab, s, c, h, cg); break;
-    case 2: last_round<LOG_R, (LOG_R < 2 ? LOG_R : 2), INV>(
+    case 1: last_round<LOG_R, 1, INV, DIAG2>(ps, a, sh, tab, s, c, h, cg);
+      break;
+    case 2: last_round<LOG_R, (LOG_R < 2 ? LOG_R : 2), INV, DIAG2>(
         ps, a, sh, tab, s, c, h, cg); break;
-    case 3: last_round<LOG_R, (LOG_R < 3 ? LOG_R : 3), INV>(
+    case 3: last_round<LOG_R, (LOG_R < 3 ? LOG_R : 3), INV, DIAG2>(
         ps, a, sh, tab, s, c, h, cg); break;
-    case 4: last_round<LOG_R, (LOG_R < 4 ? LOG_R : 4), INV>(
+    case 4: last_round<LOG_R, (LOG_R < 4 ? LOG_R : 4), INV, DIAG2>(
         ps, a, sh, tab, s, c, h, cg); break;
     default: break;
   }
@@ -253,9 +266,10 @@ __host__ __device__ int table_len(int log_t, int log_r) {
   return n;
 }
 
-template <int LOG_R>
+template <int LOG_R, bool DIAG2>
 __global__ void __launch_bounds__(kMaxThreads)
     ntt_local_pass_kernel(Pass ps, int64_t in_b, int64_t out_b,
+                          int64_t diag_b, int64_t diag2_b,
                           const uint64_t* __restrict__ tw) {
   extern __shared__ uint64_t smem[];
   const int log_t = ps.log_t;
@@ -265,6 +279,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   uint64_t* sh = smem + tab_n;
   ps.in += blockIdx.y * in_b;
   ps.out += blockIdx.y * out_b;
+  if (ps.diag != nullptr) ps.diag += blockIdx.y * diag_b;
+  if (DIAG2) ps.diag2 += blockIdx.y * diag2_b;
 
   // the outer twiddles of every round, from the last stage of tw
   // (w_t^e for e < t/2; w_t^(e + t/2) = -w_t^e)
@@ -305,9 +321,9 @@ __global__ void __launch_bounds__(kMaxThreads)
   // the direction, from w_4 = w_t^(t/4) (forward: 2^48)
   const bool inverse = log_t >= 2 && tw[(t >> 1) - 1 + (t >> 2)] != (1ull << 48);
   if (inverse) {
-    run_pass<LOG_R, true>(ps, sh, tab, staged);
+    run_pass<LOG_R, true, DIAG2>(ps, sh, tab, staged);
   } else {
-    run_pass<LOG_R, false>(ps, sh, tab, staged);
+    run_pass<LOG_R, false, DIAG2>(ps, sh, tab, staged);
   }
 }
 
@@ -320,7 +336,18 @@ struct Plan {
   const void* kernel;
 };
 
-Plan plan(int log_t, int log_tc) {
+template <bool DIAG2>
+const void* kernel_for(int log_r) {
+  switch (log_r) {
+    case 1: return reinterpret_cast<const void*>(ntt_local_pass_kernel<1, DIAG2>);
+    case 2: return reinterpret_cast<const void*>(ntt_local_pass_kernel<2, DIAG2>);
+    case 3: return reinterpret_cast<const void*>(ntt_local_pass_kernel<3, DIAG2>);
+    default:
+      return reinterpret_cast<const void*>(ntt_local_pass_kernel<kLogR, DIAG2>);
+  }
+}
+
+Plan plan(int log_t, int log_tc, bool diag2) {
   Plan pl;
   pl.log_r = log_t < kLogR ? log_t : kLogR;
   const int log_h = log_t - pl.log_r;
@@ -335,12 +362,7 @@ Plan plan(int log_t, int log_tc) {
       static_cast<size_t>(table_len(log_t, pl.log_r)) +
       (static_cast<size_t>((1 << log_t) + pl.swz_mask + 1) << pl.log_tc);
   pl.smem = words * sizeof(uint64_t);
-  switch (pl.log_r) {
-    case 1: pl.kernel = reinterpret_cast<const void*>(ntt_local_pass_kernel<1>); break;
-    case 2: pl.kernel = reinterpret_cast<const void*>(ntt_local_pass_kernel<2>); break;
-    case 3: pl.kernel = reinterpret_cast<const void*>(ntt_local_pass_kernel<3>); break;
-    default: pl.kernel = reinterpret_cast<const void*>(ntt_local_pass_kernel<kLogR>); break;
-  }
+  pl.kernel = diag2 ? kernel_for<true>(pl.log_r) : kernel_for<false>(pl.log_r);
   return pl;
 }
 
@@ -357,24 +379,27 @@ extern "C" int tf_ntt_local_pass(
     const void* in, void* out, int log_t, int log_tc, long long ncols,
     int nbatch, long long in_b, long long in_e, long long in_c,
     long long out_b, long long out_e, long long out_c, const void* tw,
-    const void* diag, long long diag_e, long long diag_c,
-    unsigned long long scale, void* stream) {
+    const void* diag, long long diag_b, long long diag_e, long long diag_c,
+    const void* diag2, long long diag2_b, long long diag2_e,
+    long long diag2_c, unsigned long long scale, void* stream) {
   if (log_t < 1 || log_t > 12 || log_tc < 0 || nbatch < 1 || nbatch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Plan pl = plan(log_t, log_tc);
+  const Plan pl = plan(log_t, log_tc, diag2 != nullptr);
   const cudaError_t err = prepare(pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   Pass ps{static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
           log_t, pl.log_tc, ncols, in_e, in_c, out_e, out_c,
-          static_cast<const uint64_t*>(diag), diag_e, diag_c, scale,
+          static_cast<const uint64_t*>(diag), diag_e, diag_c,
+          static_cast<const uint64_t*>(diag2), diag2_e, diag2_c, scale,
           pl.swz_shift, pl.swz_mask};
   const long long tiles = (ncols + (1ll << pl.log_tc) - 1) >> pl.log_tc;
   if (tiles > 0) {
     const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(nbatch));
-    long long in_bb = in_b, out_bb = out_b;
+    long long in_bb = in_b, out_bb = out_b, diag_bb = diag_b,
+              diag2_bb = diag2_b;
     const auto* twd = static_cast<const uint64_t*>(tw);
-    void* args[] = {&ps, &in_bb, &out_bb, &twd};
+    void* args[] = {&ps, &in_bb, &out_bb, &diag_bb, &diag2_bb, &twd};
     return static_cast<int>(cudaLaunchKernel(
         pl.kernel, grid, dim3(pl.threads), args, pl.smem,
         static_cast<cudaStream_t>(stream)));
@@ -389,7 +414,7 @@ extern "C" int tf_ntt_occupancy(int log_t, int log_tc, int* block,
   if (log_t < 1 || log_t > 12 || log_tc < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Plan pl = plan(log_t, log_tc);
+  const Plan pl = plan(log_t, log_tc, false);
   const cudaError_t err = prepare(pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   *block = pl.threads;

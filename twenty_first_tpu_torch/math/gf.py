@@ -24,8 +24,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .b_field_element import P
+from .b_field_element import GENERATOR, MAX, P  # noqa: F401
 
+P_LO = np.uint32(P & 0xFFFF_FFFF)  # 0x0000_0001
+P_HI = np.uint32(P >> 32)  # 0xFFFF_FFFF
 # Montgomery radix residue and its inverse: Tip5's S-box is *specified* on
 # the byte decomposition of the Montgomery representative x * 2^64 mod p.
 R = (1 << 64) % P  # == 2^32 - 1
@@ -73,6 +75,42 @@ def to_jax_limbs(x: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
     v = to_u64(x)
     return ((v & np.uint64(_M32)).astype(np.uint32),
             (v >> np.uint64(32)).astype(np.uint32))
+
+
+# The JAX package's limb API: a field array as two uint32 planes (lo, hi).
+# Here the planes are uint32 tensors on a named device, converted to and
+# from the int64 carrier at the seam; no kernel takes them.
+
+
+def limbs_of(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int64 carrier -> uint32 planes (lo, hi) on its device."""
+    return ((x & _M32).to(torch.uint32),
+            ((x >> 32) & _M32).to(torch.uint32))
+
+
+def carrier_of(limbs) -> torch.Tensor:
+    """uint32 planes (lo, hi) -> int64 carrier on their device."""
+    lo, hi = limbs
+    return lo.to(torch.int64) | (hi.to(torch.int64) << 32)
+
+
+def to_limbs(values, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Host integers (array-like of python ints or np.uint64) -> uint32
+    limb planes (lo, hi) on ``device``."""
+    return limbs_of(from_u64(values).to(device))
+
+
+def from_limbs(x) -> np.ndarray:
+    """Limb planes (lo, hi), tensors on any device or arrays -> a host
+    np.uint64 array."""
+    lo, hi = (np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v,
+                         dtype=np.uint64) for v in x)
+    return lo | (hi << np.uint64(32))
+
+
+def const_limbs(value: int):
+    """A python-int constant as uint32 scalar limbs (lo, hi)."""
+    return np.uint32(value & _M32), np.uint32((value >> 32) & _M32)
 
 
 def full_like(x: torch.Tensor, value: int) -> torch.Tensor:

@@ -48,6 +48,17 @@ def to_u64(x: torch.Tensor) -> np.ndarray:
     return np.moveaxis(gf.to_u64(x), -2, -1)
 
 
+def to_limbs(values, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Host (..., 3) uint64 xfe array -> uint32 limb planes (lo, hi) of
+    the (..., 3, n) layout on ``device`` (input (n, 3) -> planes (3, n))."""
+    return gf.limbs_of(from_u64(values).to(device))
+
+
+def from_limbs(x) -> np.ndarray:
+    """(..., 3, n) limb planes (lo, hi) -> host (..., n, 3) uint64."""
+    return np.moveaxis(gf.from_limbs(x), -2, -1)
+
+
 def add(a, b):
     return gf.add(a, b)
 

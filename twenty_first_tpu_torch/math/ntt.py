@@ -6,17 +6,36 @@ as the reference's bit-reverse + radix-2 DIT transform, X[k] = sum_j
 x[j] w^(jk) with w = PRIMITIVE_ROOTS[n] (its inverse for the iNTT, which
 also scales by 1/n).
 
-Up to 2^12 one local pass (K3, ``ops/ntt_cuda.py``) transforms every row.
-Above, up to 2^24, the four-step decomposition with n = n1 * n2, log_n1 =
-log_n // 2:
+Every power of two up to 2^32 is a length, as in JAX. Up to 2^12 one
+local pass (K3, ``ops/ntt_cuda.py``) transforms every row. Above, up to
+2^24, the four-step decomposition with n = n1 * n2, log_n1 = log_n // 2:
 
     X[k2 + n2*k1] = NTT_n1( w^(j1*k2) * NTT_n2( x[j1 + n1*j2] )_{j2} )_{j1}
 
 pass 1 transforms over j2 and multiplies the diagonal w^(j1*k2) (laid out
 [k2, j1]) in its epilogue; pass 2 reads the (n2, n1) result transposed,
-transforms over j1 with 1/n in its epilogue, and writes natural order. The
-values do not depend on the decomposition, so the JAX package's 2^17
-threshold does not matter here. Lengths 0 and 1 are copies, as in JAX.
+transforms over j1 with 1/n in its epilogue, and writes natural order.
+
+From 2^THREE_PASS_LOG_N (2^25) a pass of K3 would need more than 2^12
+elements, so the transform takes three passes (Bailey's three factors,
+n = A * B * C, each at most 2^11 up to 2^33; ``three_pass_split``). With
+x[a + A b + AB c] and X[kc + C kb + CB ka]:
+
+    X = NTT_A over a of w_n^(a kc) w_AB^(a kb) *
+        NTT_B over b of w_BC^(b kc) * NTT_C over c of x
+
+Pass 1 reads x and writes the result's buffer in the layout [a, b, kc]
+(position kc + C b + CB a); pass 2 over b and pass 3 over a then run in
+place, and pass 3's output positions are natural order. So the transform
+needs no memory beyond its input and output: at 2^32, 32 GiB each. An
+in-place call (``out`` sharing x's storage) costs one more buffer of n
+elements, since pass 1 cannot write over its input. The
+twiddles are broadcast views of three tables of at most 2^22 entries:
+(B, C) w_BC^(b kc) in pass 1's epilogue, and the outer twiddle
+w_n^(a (kc + C kb)) as the product of (A, C) w_n^(a kc) and (A, B)
+w_AB^(a kb) in pass 2's (K3's two diagonals). The values do not depend on
+the decomposition, so the JAX package's thresholds do not matter here.
+Lengths 0 and 1 are copies, as in JAX.
 
 The NTT-domain convolutions (``conv_values``, ``conv_table_values``) run
 their transforms here and their pointwise products and inverses through
@@ -50,7 +69,10 @@ from .b_field_element import P, PRIMITIVE_ROOTS
 from ..ops import ntt_cuda, poly_cuda
 from ..ops.ntt_cuda import MAX_LOG_T, bit_reverse_permutation  # noqa: F401
 
-MAX_LOG_N = 2 * MAX_LOG_T
+MAX_LOG_N = 32
+#: log2 of the shortest length that takes three passes of K3 (two passes
+#: reach 2^(2 * MAX_LOG_T))
+THREE_PASS_LOG_N = 2 * MAX_LOG_T + 1
 
 
 class NttDomainError(ValueError):
@@ -59,20 +81,13 @@ class NttDomainError(ValueError):
 
 def _check_len(n: int) -> int:
     """log2 of a transform length (0 for a length of 0), as the JAX
-    package's ``_check_len``; raises NttDomainError for any other length,
-    and for the lengths 2^25..2^32 that JAX takes but two passes of K3
-    cannot."""
+    package's ``_check_len``; raises NttDomainError for any other length."""
     if n == 0:
         return 0
-    if n & (n - 1) or n > (1 << 32):
+    if n & (n - 1) or n > (1 << MAX_LOG_N):
         raise NttDomainError(
             f"NTT length must be 0 or a power of two <= 2^32, got {n}")
-    log_n = int(n).bit_length() - 1
-    if log_n > MAX_LOG_N:
-        raise NttDomainError(
-            f"NTT length 2^{log_n} is above this port's limit of "
-            f"2^{MAX_LOG_N} (two passes of at most 2^{MAX_LOG_T})")
-    return log_n
+    return int(n).bit_length() - 1
 
 
 def _root(n: int, inverse: bool) -> int:
@@ -83,6 +98,16 @@ def _root(n: int, inverse: bool) -> int:
 def four_step_split(log_n: int) -> tuple[int, int]:
     """(log_n1, log_n2): n1 = 2^(log_n // 2) columns of length n2."""
     return log_n // 2, log_n - log_n // 2
+
+
+def three_pass_split(log_n: int) -> tuple[int, int, int]:
+    """(log_a, log_b, log_c) of n = A * B * C, the JAX package's
+    ``_three_step_split``: A the largest, every factor at most 2^11 up to
+    2^33."""
+    log_a = (log_n + 2) // 3
+    rem = log_n - log_a
+    log_b = (rem + 1) // 2
+    return log_a, log_b, rem - log_b
 
 
 def stage_twiddles(log_t: int, inverse: bool) -> np.ndarray:
@@ -104,19 +129,31 @@ def four_step_diag(log_n: int, inverse: bool) -> np.ndarray:
     return pw[k2 * j1]  # j1 * k2 < n: no wrap
 
 
+def _pow_table(root: int, rows: int, cols: int) -> np.ndarray:
+    """(rows, cols) uint64: root^(r * c)."""
+    pw = gfn.powers(root, (rows - 1) * (cols - 1) + 1)
+    return pw[np.arange(rows, dtype=np.int64)[:, None]
+              * np.arange(cols, dtype=np.int64)[None, :]]
+
+
 @dataclass(frozen=True)
 class NttTables:
     """Device tables of one transform size and direction.
 
-    tw1: pass 1's stage twiddles (length n for a single pass, else n2);
-    tw2, diag: pass 2's twiddles (length n1) and the [k2, j1] diagonal,
-    both None for a single pass."""
+    tw1: pass 1's stage twiddles (length n for a single pass, n2 for two,
+    C for three); tw2, diag: pass 2's twiddles (length n1) and pass 1's
+    [k2, j1] diagonal, both None for a single pass. Three passes: tw2 and
+    tw3 of lengths B and A, diag pass 1's (B, C) w_BC^(b kc), and diag2,
+    diag2b pass 2's (A, C) w_n^(a kc) and (A, B) w_AB^(a kb)."""
 
     n: int
     inverse: bool
     tw1: torch.Tensor
     tw2: torch.Tensor | None = None
     diag: torch.Tensor | None = None
+    tw3: torch.Tensor | None = None
+    diag2: torch.Tensor | None = None
+    diag2b: torch.Tensor | None = None
 
 
 def ntt_tables(n: int, inverse: bool = False, device="cuda") -> NttTables:
@@ -124,6 +161,21 @@ def ntt_tables(n: int, inverse: bool = False, device="cuda") -> NttTables:
     if n <= 1:  # lengths 0 and 1 are copies: no stage, no twiddle
         return NttTables(n, inverse,
                          torch.zeros(0, dtype=torch.int64, device=device))
+    if log_n >= THREE_PASS_LOG_N:
+        log_a, log_b, log_c = three_pass_split(log_n)
+        a, b, c = 1 << log_a, 1 << log_b, 1 << log_c
+        root = _root(n, inverse)
+
+        def dev(arr):
+            return gf.from_u64(arr).to(device)
+
+        return NttTables(
+            n, inverse, dev(stage_twiddles(log_c, inverse)),
+            dev(stage_twiddles(log_b, inverse)),
+            dev(_pow_table(pow(root, a, P), b, c)),
+            dev(stage_twiddles(log_a, inverse)),
+            dev(_pow_table(root, a, c)),
+            dev(_pow_table(pow(root, c, P), a, b)))
     if log_n <= MAX_LOG_T:
         return NttTables(n, inverse,
                          gf.from_u64(stage_twiddles(log_n, inverse)).to(device))
@@ -181,6 +233,20 @@ def ntt(x, inverse: bool = False, *, tables: NttTables | None = None,
                   else ntt_cuda.ntt_local_pass)
     scale = pow(n, P - 2, P) if inverse else 1
     rows = x.reshape(-1, n).contiguous()
+    if tables.tw3 is not None:
+        # pass 1 changes the layout, so it cannot write over its input: an
+        # out that shares the input's storage (say out=x) gets a buffer of
+        # its own and a copy, as the two-pass route's scratch does
+        direct = (out is not None and out.is_contiguous()
+                  and out.untyped_storage().data_ptr()
+                  != rows.untyped_storage().data_ptr())
+        res = out.view(-1, n) if direct else torch.empty_like(rows)
+        _three_pass(rows, res, tables, local_pass, scale, post)
+        if out is None:
+            return res.view(x.shape)
+        if res.data_ptr() != out.data_ptr():
+            out.copy_(res.view(x.shape))
+        return out
     res = torch.empty_like(rows) if out is None else out
     if tables.diag is None:
         # one pass; the rows are its columns: views (1, n, rows), and post
@@ -202,10 +268,44 @@ def ntt(x, inverse: bool = False, *, tables: NttTables | None = None,
     return res.view(x.shape)
 
 
+def _three_pass(rows, res, tables: NttTables, local_pass, scale: int,
+                post) -> None:
+    """The three-pass transform of each row of ``rows`` into the same row
+    of ``res`` (both (R, n), rows contiguous); see the module docstring."""
+    log_a, log_b, log_c = three_pass_split(rows.shape[-1].bit_length() - 1)
+    a, b, c = 1 << log_a, 1 << log_b, 1 << log_c
+    diag1 = tables.diag.view(b, c, 1).expand(b, c, a)
+    diag2 = tables.diag2.view(a, 1, c).expand(a, b, c)
+    diag2b = tables.diag2b.view(a, b, 1).expand(a, b, c)
+    post = None if post is None else post.view(a, c * b)
+    for x, y in zip(rows, res):
+        # pass 1 over c, batches b, columns a: x[a + A b + AB c] into
+        # position kc + C b + CB a
+        local_pass(x.as_strided((b, c, a), (a, a * b, 1)), tables.tw1,
+                   diag=diag1, out=y.as_strided((b, c, a), (c, 1, c * b)))
+        # pass 2 over b, batches a, columns kc, in place
+        v = y.as_strided((a, b, c), (c * b, c, 1))
+        local_pass(v, tables.tw2, diag=diag2, diag2=diag2b, out=v)
+        # pass 3 over a, columns kc + C kb, in place: natural order
+        v = y.view(1, a, c * b)
+        local_pass(v, tables.tw3, diag=post, scale=scale, out=v)
+
+
 def intt(x, *, tables: NttTables | None = None, plain: bool = False,
          post=None, out=None):
     return ntt(x, inverse=True, tables=tables, plain=plain, post=post,
                out=out)
+
+
+def ntt_limbs(x, inverse: bool = False):
+    """NTT over the last axis of limb planes (lo, hi): uint32 tensors on
+    one device (``gf.to_limbs``), the JAX package's limb API; the result's
+    planes on the same device."""
+    return gf.limbs_of(ntt(gf.carrier_of(x), inverse))
+
+
+def intt_limbs(x):
+    return ntt_limbs(x, inverse=True)
 
 
 def _ntt_objects(elements, inverse: bool) -> list:

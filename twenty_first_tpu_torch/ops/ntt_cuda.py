@@ -4,9 +4,10 @@ The counterpart of ``twenty_first_tpu/ops/ntt_pallas.py``: K3
 ``ntt_local_pass`` replaces ``fused_local_pass``. A pass takes a strided
 (B, t, C) view ``x`` and writes, for every batch b and column c, the
 natural-order NTT of length t of ``x[b, :, c]`` into ``out[b, :, c]``,
-times ``diag[k, c]`` and ``scale`` where given. The views' strides are what
-let the four-step passes run without a separate transpose
-(``math/ntt.py``).
+times ``diag``, ``diag2`` and ``scale`` where given (each diagonal a (t, C)
+view shared by the batches, or a (B, t, C) one). The views' strides are
+what let the four-step and three-pass transforms run without a separate
+transpose (``math/ntt.py``).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 twin. The wrapper counts its launches in ``ntt_local_pass.launches``.
@@ -53,7 +54,7 @@ def _log_t(x) -> int:
     return log_t
 
 
-def _check(x, tw, diag, out):
+def _check(x, tw, diag, diag2, out):
     if x.dim() != 3 or x.dtype != torch.int64:
         raise ValueError(f"x must be a (B, t, C) int64 view, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -64,10 +65,11 @@ def _check(x, tw, diag, out):
             or tw.device != x.device or not tw.is_contiguous()):
         raise ValueError(f"tw must be the contiguous ({t - 1},) int64 stage "
                          "twiddles on x's device")
-    if diag is not None and (diag.shape != x.shape[1:] or diag.dtype != x.dtype
-                             or diag.device != x.device):
-        raise ValueError(f"diag must be a {tuple(x.shape[1:])} int64 tensor "
-                         "on x's device")
+    for d in (diag, diag2):
+        if d is not None and (d.shape not in (x.shape, x.shape[1:])
+                              or d.dtype != x.dtype or d.device != x.device):
+            raise ValueError(f"a diagonal must be a {tuple(x.shape[1:])} or "
+                             f"{tuple(x.shape)} int64 tensor on x's device")
     same_view = (out.data_ptr() == x.data_ptr()
                  and out.stride() == x.stride())
     if (not same_view and out.numel() and x.numel()
@@ -94,7 +96,15 @@ def occupancy(log_t: int, ncols: int, device=None) -> tuple[int, int]:
     return block.value, blocks.value
 
 
-def ntt_local_pass_plain(x, tw, *, diag=None, scale: int = 1, out=None):
+def _strides(d):
+    """(batch, element, column) strides of a diagonal, 0 where absent."""
+    if d is None:
+        return 0, 0, 0
+    return (0,) * (3 - d.dim()) + d.stride()
+
+
+def ntt_local_pass_plain(x, tw, *, diag=None, diag2=None, scale: int = 1,
+                         out=None):
     """Plain twin of K3: bit-reverse, radix-2 DIT stages, epilogue."""
     b, t, c = x.shape
     log_t = t.bit_length() - 1
@@ -108,8 +118,9 @@ def ntt_local_pass_plain(x, tw, *, diag=None, scale: int = 1, out=None):
         v = gf.mul(y[:, :, 1, :], tw[m - 1:2 * m - 1])
         y = torch.stack([gf.add(u, v), gf.sub(u, v)], dim=2)
     y = y.reshape(b, c, t).permute(0, 2, 1)
-    if diag is not None:
-        y = gf.mul(y, diag)
+    for d in (diag2, diag):
+        if d is not None:
+            y = gf.mul(y, d)
     if scale != 1:
         y = gf.mul_const(y, scale)
     if out is None:
@@ -118,12 +129,14 @@ def ntt_local_pass_plain(x, tw, *, diag=None, scale: int = 1, out=None):
     return out
 
 
-def ntt_local_pass(x, tw, *, diag=None, scale: int = 1, out=None):
+def ntt_local_pass(x, tw, *, diag=None, diag2=None, scale: int = 1,
+                   out=None):
     """One local pass (see the module docstring); returns ``out``.
 
     x: (B, t, C) int64 view, any non-negative strides, t = 2^1..2^12.
     tw: (t - 1,) stage twiddles (``math.ntt.stage_twiddles``).
-    diag: optional (t, C) view multiplied into the output.
+    diag, diag2: optional (t, C) or (B, t, C) views multiplied into the
+    output (broadcast views with zero strides are fine).
     scale: python int multiplied into the output (1: none).
     out: (B, t, C) view to write; a new contiguous tensor when None. It
     shares no storage with x unless it is x itself (each block reads its
@@ -131,9 +144,10 @@ def ntt_local_pass(x, tw, *, diag=None, scale: int = 1, out=None):
     """
     if out is None:
         out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    _check(x, tw, diag, out)
+    _check(x, tw, diag, diag2, out)
     if x.device.type == "cpu":
-        return ntt_local_pass_plain(x, tw, diag=diag, scale=scale, out=out)
+        return ntt_local_pass_plain(x, tw, diag=diag, diag2=diag2,
+                                    scale=scale, out=out)
     if not x.is_cuda:
         raise ValueError(f"no kernel for device {x.device}")
     nb, _, ncols = x.shape
@@ -143,14 +157,14 @@ def ntt_local_pass(x, tw, *, diag=None, scale: int = 1, out=None):
         return out
     log_t = _log_t(x)
     log_tc = column_tile_log2(log_t, ncols)
-    diag_e, diag_c = diag.stride() if diag is not None else (0, 0)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.tf_ntt_local_pass(
             x.data_ptr(), out.data_ptr(), log_t, log_tc, ncols, nb,
             *x.stride(), *out.stride(), tw.data_ptr(),
-            diag.data_ptr() if diag is not None else None, diag_e, diag_c,
-            scale % gf.P, _build.stream_of(x))
+            diag.data_ptr() if diag is not None else None, *_strides(diag),
+            diag2.data_ptr() if diag2 is not None else None,
+            *_strides(diag2), scale % gf.P, _build.stream_of(x))
         _build.check(err, "ntt_local_pass")
     ntt_local_pass.launches += 1
     return out

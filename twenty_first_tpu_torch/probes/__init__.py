@@ -1,4 +1,7 @@
 """Hopper counterparts of the JAX package's Pallas probes in ``scripts/``:
 ``pass_probe`` (an NTT local pass three ways) and ``alu_probe`` (chains of
-one lazy field op). Each runs as ``python -m twenty_first_tpu_torch.probes.<name>``
+one lazy field op), and the port's own: ``tip5_probe``, ``k3_probe``,
+``fold_probe``, ``inv_probe`` (kernels by SASS, tile, lane target and
+launch) and ``merkle_probe`` (the Merkle tree's host route against the
+card's). Each runs as ``python -m twenty_first_tpu_torch.probes.<name>``
 on a CUDA device and refuses to run without one."""

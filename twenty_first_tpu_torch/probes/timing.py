@@ -78,6 +78,13 @@ def wall_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(wall_times(fn, reps, warmup))
 
 
+def crossover(host: dict, card: dict):
+    """The largest size at which the host's time is at most the card's
+    (the card wins at every size above it); None if the card wins at every
+    size. ``host`` and ``card`` map sizes to milliseconds."""
+    return max((n for n in host if host[n] <= card[n]), default=None)
+
+
 def cuda_times(fn, reps: int, warmup: int = 1) -> list[float]:
     """Device milliseconds of each of ``reps`` fn() calls by CUDA events,
     after warm-up.

@@ -33,6 +33,7 @@ from .constants import (
     CAPACITY,
     DIGEST_LENGTH,
     LOOKUP_TABLE,
+    MDS_MATRIX,  # noqa: F401  (the JAX module's re-export)
     MDS_MATRIX_FIRST_COLUMN,
     NUM_ROUNDS,
     NUM_SPLIT_AND_LOOKUP,

@@ -1,19 +1,20 @@
 """Scalar Tip5 sponge (host side) and its hash entry points.
 
 The counterpart of ``twenty_first_tpu/tip5/tip5.py``, held against it by
-``tests/test_torch_tip5_object.py``. The scalar permutation is the JAX
-package's own direct-from-spec oracle over canonical field values (python
-ints), copied: byte lookup on the Montgomery bytes, x^7, the circulant MDS
-as a plain field matvec, round constants. Unlike the JAX package it does
-not dispatch to the native host core (``native/``): the port has no loader
-for it yet, so scalar hashing is pure Python, which suits the few thousand
-hashes of a proof or an MMR update.
+``tests/test_torch_tip5_object.py`` and ``tests/test_torch_bfield_codec.py``.
+As in the JAX package, the scalar permutation and ``hash_varlen`` run on
+the native host core (the port's loader, ``native.py``) when it is
+available; the JAX package's direct-from-spec rounds over canonical field
+values (python ints), copied here (byte lookup on the Montgomery bytes,
+x^7, the circulant MDS as a plain field matvec, round constants), run
+otherwise (``TWENTY_FIRST_TPU_NO_NATIVE``, or no g++) and are the oracle
+the tests hold the native path against (``_permute_rounds``).
 
-Batch-sized work goes to ``tip5/permutation.py``: ``hash_varlen_batch``
-hashes many inputs at once on ``device`` (K1 on the card), and the Merkle
-tree and the MMR build their trees with K2 (``util_types/merkle_tree.py``).
-``hash``/``hash_batch`` (BFieldCodec encodings) come with ``bfield_codec``,
-which is not ported yet.
+``hash`` hashes an object's BFieldCodec encoding (``math/bfield_codec.py``)
+on the host. Batch-sized work goes to ``tip5/permutation.py`` on
+``device``: ``hash_varlen_batch`` and ``hash_batch`` (encodings) hash many
+inputs at once (K1 on the card), and the Merkle tree and the MMR build
+their trees with K2 (``util_types/merkle_tree.py``).
 """
 
 from __future__ import annotations
@@ -43,7 +44,18 @@ _RC = [int(c) for c in ROUND_CONSTANTS]
 
 
 def _permute_values(state: list[int]) -> list[int]:
-    """The Tip5 permutation on 16 canonical values (python ints)."""
+    """The Tip5 permutation on 16 canonical values (python ints): the
+    native host core's when it is available, else ``_permute_rounds``."""
+    from .. import native
+
+    if native.available():
+        out = native.tip5_permute_batch(np.array([state], dtype=np.uint64))
+        return [int(v) for v in out[0]]
+    return _permute_rounds(state)
+
+
+def _permute_rounds(state: list[int]) -> list[int]:
+    """The permutation by the pure-Python rounds (the oracle)."""
     for r in range(NUM_ROUNDS):
         state = _round_values(state, r)
     return state
@@ -116,9 +128,22 @@ class Tip5(Sponge):
 
     @classmethod
     def hash_varlen(cls, input_elements: Sequence) -> Digest:
+        from .. import native
+
+        if native.available():
+            vals = np.array([bfe(e).value() for e in input_elements],
+                            dtype=np.uint64)
+            return Digest.from_array(native.tip5_hash_varlen(vals))
         sponge = cls.init()
         sponge.pad_and_absorb_all(input_elements)
         return Digest(sponge.state[: Digest.LEN])
+
+    @classmethod
+    def hash(cls, value) -> Digest:
+        """Hash an object via its BFieldCodec encoding (tip5/mod.rs:593-595)."""
+        from ..math.bfield_codec import encode
+
+        return cls.hash_varlen(encode(value))
 
     @classmethod
     def hash_varlen_batch(cls, inputs: Sequence[Sequence], device="cuda",
@@ -136,6 +161,17 @@ class Tip5(Sponge):
         ]
         out = device_path.hash_varlen_ragged(arrs, device=device, plain=plain)
         return [Digest.from_array(row) for row in out]
+
+    @classmethod
+    def hash_batch(cls, values: Sequence, device="cuda",
+                   plain: bool = False) -> list[Digest]:
+        """Hash many objects via their BFieldCodec encodings at once on
+        ``device`` (``hash_varlen_batch``: K1 on the card). Equal to
+        ``hash`` of each object."""
+        from ..math.bfield_codec import encode
+
+        return cls.hash_varlen_batch([encode(v) for v in values],
+                                     device=device, plain=plain)
 
     # -- Fiat-Shamir helpers -------------------------------------------------
 

@@ -6,16 +6,22 @@ twenty-first/src/util_types/merkle_tree.rs in API and values. Node indexing
 is the reference's 1-based heap (root at 1, leafs at n..2n-1, row 0 unused;
 merkle_tree.rs:25-88).
 
-The nodes are one (2n, 5) int64 carrier tensor on a device. The batched
-work runs on the device the caller names, at every size: ``new`` reduces
-level by level with K2's full-width ``merkle_level``, each level written
-straight into the node tensor; ``frugal_root`` is the commit's own launch
-plan (``ops/tip5_commit.py::reduce_layers``: full-width levels, then the
-fused tail); ``authentication_structure_from_leafs`` keeps one level at a
-time and gathers the nodes it needs from each before the next. A CPU
-tensor takes the plain twins, as does ``plain=True`` on any device. The
-JAX package's host crossover (``HOST_MERKLE_MAX_LEAFS``, tuned to a TPU's
-transfer link) is not ported.
+The nodes are one (2n, 5) int64 carrier tensor on a device. Host leafs
+(numpy or a list of Digests) of at most ``HOST_MERKLE_MAX_LEAFS`` rows are
+hashed on the host by the native core (``native.tip5_hash_pairs`` a level,
+``native.tip5_merkle_root``), as in the JAX package, whatever ``plain``
+says; the nodes then go to the named device. Size and the native core
+decide, never whether a card is present: without the core
+(``TWENTY_FIRST_TPU_NO_NATIVE``, or no g++) host leafs go to the named
+device and take the device route below. Leafs given as a tensor stay on
+its device at every size. Everything else runs on the
+device: ``new`` reduces level by level with K2's full-width
+``merkle_level``, each level written straight into the node tensor;
+``frugal_root`` is the commit's own launch plan
+(``ops/tip5_commit.py::reduce_layers``: full-width levels, then the fused
+tail); ``authentication_structure_from_leafs`` keeps one level at a time
+and gathers the nodes it needs from each before the next. A CPU tensor
+takes the plain twins, as does ``plain=True`` on any device.
 
 The de-duplicated authentication structure's index math, inclusion proofs
 and partial-tree verification (merkle_tree.rs:449-931) are scalar host
@@ -24,11 +30,13 @@ code over ``Tip5.hash_pair``, as in the JAX package.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from .. import native
 from ..errors import MerkleTreeError
 from ..math import gf
 from ..ops import tip5_commit, tip5_cuda
@@ -41,6 +49,53 @@ ROOT_INDEX = 1
 # In-struct size limit, as in the reference (merkle_tree.rs:76-79).
 MAX_TREE_HEIGHT = 24
 
+# Host leafs of up to this many rows are hashed on the host (the native
+# core), above on the device: the JAX package's name and environment
+# variable, with the default from chip_smoke.py's sweep of host against card
+# wall time on an H100's host, numpy in and out, the node tensor's copy
+# included (PERF.md section 6). The JAX package's 2^21 was tuned to
+# a TPU's transfer link.
+HOST_MERKLE_MAX_LEAFS = int(os.environ.get(
+    "TWENTY_FIRST_TPU_HOST_MERKLE_MAX_LEAFS", str(1 << 7)))
+
+
+def _leaf_array(leafs) -> np.ndarray:
+    """Host leafs (numpy uint64 (n, 5) or a list of Digests) as (n, 5)
+    uint64."""
+    if isinstance(leafs, np.ndarray):
+        arr = np.asarray(leafs, dtype=np.uint64)
+        if arr.ndim != 2 or arr.shape[1] != Digest.LEN:
+            raise MerkleTreeError(f"leaf array must be (n, 5), got {arr.shape}")
+        return arr
+    return np.array([d.to_array() for d in leafs],
+                    dtype=np.uint64).reshape(-1, Digest.LEN)
+
+
+def _routed_leafs(leafs, device):
+    """Host leafs of at most HOST_MERKLE_MAX_LEAFS rows as (n, 5) uint64
+    when the native core is loaded (the host route); other leafs as
+    ``_as_leaf_tensor`` gives them."""
+    if not isinstance(leafs, torch.Tensor):
+        arr = _leaf_array(leafs)
+        if arr.shape[0] <= HOST_MERKLE_MAX_LEAFS and native.available():
+            return arr
+        leafs = arr
+    return _as_leaf_tensor(leafs, device)
+
+
+def _host_nodes(leafs: np.ndarray) -> np.ndarray:
+    """The (2n, 5) uint64 node array over host leafs, a level at a time by
+    the native core."""
+    n = leafs.shape[0]
+    nodes = np.zeros((2 * n, Digest.LEN), dtype=np.uint64)
+    nodes[n:] = leafs
+    layer, lo = leafs, n
+    while lo > 1:
+        layer = native.tip5_hash_pairs(layer)
+        lo //= 2
+        nodes[lo: 2 * lo] = layer
+    return nodes
+
 
 def _as_leaf_tensor(leafs, device) -> torch.Tensor:
     """Leafs as an (n, 5) int64 carrier: a tensor stays on its device;
@@ -51,14 +106,7 @@ def _as_leaf_tensor(leafs, device) -> torch.Tensor:
             raise MerkleTreeError(f"leaf tensor must be (n, 5) int64, got "
                                   f"{tuple(leafs.shape)} {leafs.dtype}")
         return leafs.contiguous()
-    if isinstance(leafs, np.ndarray):
-        arr = np.asarray(leafs, dtype=np.uint64)
-        if arr.ndim != 2 or arr.shape[1] != Digest.LEN:
-            raise MerkleTreeError(f"leaf array must be (n, 5), got {arr.shape}")
-    else:
-        arr = np.array([d.to_array() for d in leafs],
-                       dtype=np.uint64).reshape(-1, Digest.LEN)
-    return gf.from_u64(arr).to(device)
+    return gf.from_u64(_leaf_array(leafs)).to(device)
 
 
 def _check_num_leafs(num_leafs: int) -> int:
@@ -100,12 +148,15 @@ class MerkleTree:
     @classmethod
     def new(cls, leafs, device="cuda", plain: bool = False) -> "MerkleTree":
         """The tree over ``leafs``: (n, 5) numpy uint64, a list of Digests
-        (both sent to ``device``) or an int64 tensor (its own device)."""
-        leafs = _as_leaf_tensor(leafs, device)
+        (hashed on the host up to HOST_MERKLE_MAX_LEAFS rows, and the nodes
+        sent to ``device``) or an int64 tensor (its own device)."""
+        leafs = _routed_leafs(leafs, device)
         n = leafs.shape[0]
         height = _check_num_leafs(n)
         if height > MAX_TREE_HEIGHT:
             raise MerkleTreeError(f"tree height {height} exceeds {MAX_TREE_HEIGHT}")
+        if isinstance(leafs, np.ndarray):
+            return cls(_host_nodes(leafs), device)
         nodes = torch.empty((2 * n, Digest.LEN), dtype=leafs.dtype,
                             device=leafs.device)
         nodes[0] = 0
@@ -127,8 +178,10 @@ class MerkleTree:
         """Root with O(layer) memory: never materializes the node array
         (reference: sequential/par_frugal_root, merkle_tree.rs:299-364),
         by the commit's launch plan."""
-        layer = _as_leaf_tensor(leafs, device)
+        layer = _routed_leafs(leafs, device)
         height = _check_num_leafs(layer.shape[0])
+        if isinstance(layer, np.ndarray):
+            return Digest.from_array(native.tip5_merkle_root(layer))
         return _digests(tip5_commit.reduce_layers(layer, height,
                                                   plain=plain))[0]
 
@@ -216,9 +269,12 @@ class MerkleTree:
         the leafs up: reduce one level at a time, keeping only the current
         one, and gather each level's nodes before reducing it. The JAX
         package takes one frugal root per node instead, the same values."""
-        layer = _as_leaf_tensor(leafs, device)
+        layer = _routed_leafs(leafs, device)
         indices = cls.authentication_structure_node_indices(
             layer.shape[0], leaf_indices)
+        if isinstance(layer, np.ndarray):
+            nodes = _host_nodes(layer)
+            return [Digest.from_array(nodes[i]) for i in indices]
         tables = tip5_tables(layer.device)
         parts, size, pos = [], layer.shape[0], 0
         while pos < len(indices):
