@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 It builds the hand-written kernels from twenty_first_tpu_torch/csrc with
 nvcc, holds each against its plain PyTorch twin on the card (exact
 equality: this is integer field arithmetic), reproduces values pinned from
-the JAX reference, and drives nine paths, each with every launch counter
+the JAX reference, and drives ten paths, each with every launch counter
 set to 0 just before it and read just after:
 
 * the flagship step (W = 8 trace columns, n = 2^20, expansion 4: a
@@ -59,6 +59,17 @@ set to 0 just before it and read just after:
   length that fits the card beside its output (2^32 the target): a delta's
   transform (X[k + 1] = X[k] w), the round trip, and four outputs of
   random input evaluated directly;
+* the distributed layer (parallel/) at world 1 over NCCL in this process:
+  the LDE commit of 2^24 coefficients (the distributed NTT in its Z layout,
+  each row X[k2::n2] hashed by the sponge, the Merkle root over the mesh)
+  and the root of the flagship step's 2^22 leaf digests (K3, K1, K2's two
+  launches), each against the single-device path; the distributed NTT at
+  2^24 both ways, in both layouts, with one and four all-to-alls, and at
+  2^26 (columns and rows in two K3 passes each) against ntt(); the xfe
+  NTT at 2^22; the MMR over 3 * 2^21 - 1 leafs with a batch append of
+  2^16; dryrun_multichip(1); PINNED_DIST; then four gloo ranks sharing the
+  card (spawned, the kernels built first) and, with two cards or more,
+  NCCL with a card a rank, each value equal to world 1's;
 * the NTT pass probe over 2^24 elements (K3 and K4);
 * the ALU probe, chains of lazy field ops (K5) in both forms.
 
@@ -1986,6 +1997,281 @@ def phase_ntt_large(counters) -> dict:
             "largest": largest}
 
 
+# the distributed phase (parallel/): the NTT and the LDE commit at world 1
+# over NCCL, the two-pass transform of columns and rows longer than one K3
+# pass, the xfe planes; then DIST_GLOO_RANKS gloo ranks sharing the card
+DIST_LOG_N, DIST_TWO_PASS_LOG_N, DIST_XFE_LOG_N = 24, 26, 22
+DIST_GLOO_RANKS, DIST_GLOO_NTT_LOG_N, DIST_GLOO_LDE_LOG_N = 4, 22, 20
+DIST_SEED = 12
+# distributed_ntt_values of dist_pin_input(12) and dist_lde_commit_values
+# of dist_pin_input(4) of the JAX reference (tests/test_torch_dist.py
+# re-derives them)
+PINNED_DIST = {
+    "ntt_2^12": ([11680897939243291889, 10688625778695833481,
+                  17465821650599573678],
+                 "74e7f65a6c22cac439984cfb994eee203746f7a10903d745bd03ead257f5d6c9"),
+    "lde_commit_2^4": [14066517630845631259, 2517194801082197725,
+                       3002827495855957701, 16222024021622636485,
+                       12980898472508654990],
+}
+
+
+def dist_pin_input(log_n: int) -> np.ndarray:
+    return np.random.default_rng(1000 + log_n).integers(
+        0, P, size=1 << log_n, dtype=np.uint64)
+
+
+def dist_input(log_n: int) -> np.ndarray:
+    return np.random.default_rng(DIST_SEED + log_n).integers(
+        0, P, size=1 << log_n, dtype=np.uint64)
+
+
+def dist_pins(mesh) -> dict:
+    """PINNED_DIST's values on ``mesh``."""
+    from twenty_first_tpu_torch.parallel import dist_ntt, pipeline
+
+    return {"ntt_2^12": pin_of(dist_ntt.distributed_ntt_values(
+                dist_pin_input(12), mesh)),
+            "lde_commit_2^4": [int(v) for v in pipeline.dist_lde_commit_values(
+                dist_pin_input(4), mesh).to_array()]}
+
+
+def slice_leaf_digests():
+    """The flagship step's (N * E, 5) leaf digests of SLICE_ROOT's trace."""
+    from twenty_first_tpu_torch.parallel import pipeline
+
+    step = pipeline.TraceLdeCommit(W, N, E)
+    return step.leaf_digests(random_field(np.random.default_rng(2026), (W, N)))
+
+
+def lde_commit_oracle(x) -> list:
+    """The root of the distributed LDE commit of the carrier vector x (on
+    the card) by the single-device composition: ``ntt``, the rows
+    X[k2::n2], ``hash_varlen``, ``MerkleTree``."""
+    from twenty_first_tpu_torch.math import gf, ntt
+    from twenty_first_tpu_torch.parallel import dist_ntt
+    from twenty_first_tpu_torch.tip5 import permutation as tip5
+    from twenty_first_tpu_torch.util_types.merkle_tree import MerkleTree
+
+    n1, n2 = dist_ntt._split_sizes(x.shape[0].bit_length() - 1)
+    rows = gf.to_u64(ntt.ntt(x).view(n1, n2).t())
+    return [int(v) for v in MerkleTree.new(tip5.hash_varlen(rows)).root()
+            .to_array()]
+
+
+def dist_rank(mesh) -> dict:
+    """One rank of a multi-rank mesh: the distributed NTT of
+    dist_input(DIST_GLOO_NTT_LOG_N), the Merkle root of the step's leaf
+    digests, the LDE commit of dist_input(DIST_GLOO_LDE_LOG_N) and
+    PINNED_DIST, with the host ms of each (medians of 5)."""
+    from twenty_first_tpu_torch.math import gf
+    from twenty_first_tpu_torch.parallel import (dist_merkle, dist_ntt,
+                                                 mesh as mesh_mod, pipeline)
+    from twenty_first_tpu_torch.probes import timing
+
+    foreign = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "twenty_first_tpu")]
+    if foreign:
+        raise AssertionError(f"rank {mesh.rank} imported {foreign[:5]}")
+    log_n, lde_log_n = DIST_GLOO_NTT_LOG_N, DIST_GLOO_LDE_LOG_N
+    n1, n2 = dist_ntt._split_sizes(log_n)
+    x = dist_input(log_n)
+    ntt_pin = pin_of(dist_ntt.distributed_ntt_values(x, mesh))
+    block = mesh_mod.shard_host_array(mesh, (None, mesh_mod.AXIS),
+                                      x.reshape(n2, n1))
+    leafs = slice_leaf_digests()
+    root = dist_merkle.distributed_merkle_root(gf.to_u64(leafs), mesh)
+    leaf_block = leafs.view(mesh.size, -1, 5)[mesh.rank]
+    lde = pipeline.dist_lde_commit_values(dist_input(lde_log_n), mesh)
+    l1, l2 = dist_ntt._split_sizes(lde_log_n)
+    lde_block = mesh_mod.shard_host_array(
+        mesh, (None, mesh_mod.AXIS), dist_input(lde_log_n).reshape(l2, l1))
+    commit = pipeline.make_dist_lde_commit(mesh, lde_log_n)
+    log_leafs = leafs.shape[0].bit_length() - 1
+    return {
+        "rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device),
+        "ntt_pin": ntt_pin, "root": [int(v) for v in root.to_array()],
+        "lde_commit": [int(v) for v in lde.to_array()],
+        "pins": dist_pins(mesh),
+        "ntt_wall_ms": timing.wall_ms(
+            lambda: dist_ntt.distributed_ntt(block, mesh), 5),
+        "merkle_root_wall_ms": timing.wall_ms(
+            lambda: dist_merkle._root(leaf_block, mesh, log_leafs), 5),
+        "lde_commit_wall_ms": timing.wall_ms(lambda: commit(lde_block), 5)}
+
+
+def phase_distributed(counters) -> dict:
+    """The distributed layer (parallel/): at world 1 over NCCL in this
+    process at full width, each result against the single-device path on
+    the card; then DIST_GLOO_RANKS gloo ranks sharing the card, each result
+    equal to world 1's; then NCCL with a card a rank where there are two
+    cards or more."""
+    import torch.distributed as dist
+
+    from twenty_first_tpu_torch.entry import dryrun_multichip
+    from twenty_first_tpu_torch.math import gf, ntt
+    from twenty_first_tpu_torch.ops import tip5_commit
+    from twenty_first_tpu_torch.parallel import (dist_merkle, dist_mmr,
+                                                 dist_ntt, mesh as mesh_mod,
+                                                 pipeline)
+    from twenty_first_tpu_torch.util_types.mmr import MmrAccumulator
+
+    t0 = time.perf_counter()
+    mesh = mesh_mod.make_mesh(1)
+    if (mesh.backend, mesh.device.type) != ("nccl", "cuda"):
+        raise AssertionError(f"world 1 on {mesh.backend}, {mesh.device}")
+    log_n = DIST_LOG_N
+    n1, n2 = dist_ntt._split_sizes(log_n)
+    x = gf.from_u64(dist_input(log_n)).cuda()
+    block = x.view(n2, n1)  # world 1: every column
+    commit = pipeline.make_dist_lde_commit(mesh, log_n)
+    leafs = slice_leaf_digests()
+    leafs_host = gf.to_u64(leafs)
+    log_leafs = leafs.shape[0].bit_length() - 1
+    # the main path, once, with every launch counter at 0: the LDE commit of
+    # 2^24 coefficients and the Merkle root of the step's 2^22 leafs
+    (root, slice_root), launches = run_path(counters, lambda: (
+        commit(block), dist_merkle.distributed_merkle_root(leafs_host, mesh)))
+    require_launched("distributed", launches)
+    if [int(v) for v in slice_root.to_array()] != SLICE_ROOT:
+        raise AssertionError(f"distributed root {slice_root} != SLICE_ROOT")
+    # the LDE commit against the single-device composition and against
+    # its plain twins on the same block (the sponge's rows of n1 words, the
+    # distributed passes' K3 views)
+    want_root = lde_commit_oracle(x)
+    if gf.to_u64(root).tolist() != [want_root]:
+        raise AssertionError(f"LDE commit 2^{log_n}: {gf.to_u64(root)} != "
+                             f"{want_root}")
+    checked = {"lde_commit_plain": require_equal(
+        f"LDE commit 2^{log_n} vs plain", root, commit(block, plain=True))}
+    # the NTT both ways, both layouts, one and four all-to-alls, against
+    # ntt(); with four, also against the plain passes on the same block
+    want, want_inv = ntt.ntt(x), ntt.intt(x)
+    for inverse, ref in ((False, want), (True, want_inv)):
+        for natural in (False, True):
+            expect = ref.view(n1, n2) if natural else ref.view(n1, n2).t()
+            for chunks in (1, 4):
+                name = (f"{'intt' if inverse else 'ntt'}_"
+                        f"{'natural' if natural else 'z'}_chunks{chunks}")
+                got = dist_ntt.distributed_ntt(block, mesh, inverse, natural,
+                                               chunks)
+                checked[name] = require_equal(
+                    f"distributed {name} 2^{log_n}", got, expect)
+                if chunks == 4:
+                    checked[f"{name}_plain"] = require_equal(
+                        f"distributed {name} 2^{log_n} vs plain", got,
+                        dist_ntt.distributed_ntt(block, mesh, inverse,
+                                                 natural, chunks, plain=True))
+                del got
+    timed = {"distributed_ntt_ms": cuda_ms(
+                 lambda: dist_ntt.distributed_ntt(block, mesh), 10),
+             "distributed_ntt_wall_ms": wall_ms(
+                 lambda: dist_ntt.distributed_ntt(block, mesh), 10),
+             "distributed_ntt_chunks1_ms": cuda_ms(
+                 lambda: dist_ntt.distributed_ntt(block, mesh,
+                                                  a2a_chunks=1), 10),
+             "ntt_ms": cuda_ms(lambda: ntt.ntt(x), 10),
+             "ntt_wall_ms": wall_ms(lambda: ntt.ntt(x), 10),
+             "lde_commit_ms": cuda_ms(lambda: commit(block), 5),
+             "lde_commit_wall_ms": wall_ms(lambda: commit(block), 5),
+             "merkle_root_ms": cuda_ms(
+                 lambda: dist_merkle._root(leafs, mesh, log_leafs), 10),
+             "single_device_tree_ms": cuda_ms(
+                 lambda: tip5_commit.reduce_layers(leafs, log_leafs), 10)}
+    del want, want_inv, x, block
+    # columns and rows longer than one pass of K3: two passes each
+    big = 1 << DIST_TWO_PASS_LOG_N
+    b1, b2 = dist_ntt._split_sizes(DIST_TWO_PASS_LOG_N)
+    xb = random_on_card(big, DIST_TWO_PASS_LOG_N)
+    for inverse in (False, True):
+        name = f"{'intt' if inverse else 'ntt'}_2^{DIST_TWO_PASS_LOG_N}"
+        got = dist_ntt.distributed_ntt(xb.view(b2, b1), mesh, inverse,
+                                       natural_output=True)
+        checked[name] = require_equal(f"distributed {name}", got,
+                                      ntt.ntt(xb, inverse).view(b1, b2))
+        checked[f"{name}_plain"] = require_equal(
+            f"distributed {name} vs plain", got, dist_ntt.distributed_ntt(
+                xb.view(b2, b1), mesh, inverse, natural_output=True,
+                plain=True))
+        del got
+    timed["two_pass_ms"] = cuda_ms(
+        lambda: dist_ntt.distributed_ntt(xb.view(b2, b1), mesh), 5)
+    timed["two_pass_single_device_ms"] = cuda_ms(lambda: ntt.ntt(xb), 5)
+    del xb
+    vals = np.random.default_rng(DIST_SEED).integers(
+        0, P, size=(1 << DIST_XFE_LOG_N, 3), dtype=np.uint64)
+    got = dist_ntt.distributed_ntt_xfe_values(vals, mesh)
+    if not np.array_equal(got, ntt.ntt_values(vals.T).T):
+        raise AssertionError(f"distributed xfe NTT 2^{DIST_XFE_LOG_N}")
+    # the MMR over MMR_LEAFS leafs and a batch append of MMR_APPEND
+    rng = np.random.default_rng(DIST_SEED)
+    mmr_leafs = rng.integers(0, P, size=(MMR_LEAFS, 5), dtype=np.uint64)
+    appended = rng.integers(0, P, size=(MMR_APPEND, 5), dtype=np.uint64)
+    peaks = dist_mmr.distributed_peaks_from_leafs(mmr_leafs, mesh)
+    if peaks != MmrAccumulator.peaks_from_leafs(mmr_leafs):
+        raise AssertionError("distributed MMR peaks != MmrAccumulator's")
+    new_peaks, count = dist_mmr.distributed_batch_append(
+        peaks, MMR_LEAFS, appended, mesh)
+    if count != MMR_LEAFS + MMR_APPEND or new_peaks != \
+            MmrAccumulator.peaks_from_leafs(np.concatenate([mmr_leafs,
+                                                            appended])):
+        raise AssertionError("distributed batch append != MmrAccumulator's")
+    del mmr_leafs, appended
+    dryrun_multichip(1)
+    pins = dist_pins(mesh)
+    if pins != PINNED_DIST:
+        raise AssertionError(f"PINNED_DIST: {pins} != {PINNED_DIST}")
+    # the values the multi-rank meshes must reproduce: the single-device
+    # path's, which world 1 reproduces too
+    world1 = {"ntt_pin": pin_of(ntt.ntt_values(
+                  dist_input(DIST_GLOO_NTT_LOG_N))),
+              "root": SLICE_ROOT,
+              "lde_commit": lde_commit_oracle(gf.from_u64(
+                  dist_input(DIST_GLOO_LDE_LOG_N)).cuda()),
+              "pins": PINNED_DIST}
+    for key, got in (
+            ("ntt_pin", pin_of(dist_ntt.distributed_ntt_values(
+                dist_input(DIST_GLOO_NTT_LOG_N), mesh))),
+            ("lde_commit", [int(v) for v in pipeline.dist_lde_commit_values(
+                dist_input(DIST_GLOO_LDE_LOG_N), mesh).to_array()])):
+        if got != world1[key]:
+            raise AssertionError(f"world 1 {key} {got} != the single-device "
+                                 f"path's {world1[key]}")
+    del leafs
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    multi = {f"gloo_{DIST_GLOO_RANKS}_ranks_one_card": mesh_mod.launch(
+        dist_rank, DIST_GLOO_RANKS, backend="gloo", device="cuda:0",
+        timeout=600)}
+    for world in (2, 4):
+        if world <= cards:
+            multi[f"nccl_{world}_cards"] = mesh_mod.launch(
+                dist_rank, world, backend="nccl", device="cuda", timeout=600)
+    for name, ranks in multi.items():
+        for r in ranks:
+            for key, value in world1.items():
+                if r[key] != value:
+                    raise AssertionError(f"{name} rank {r['rank']}: {key} "
+                                         f"{r[key]} != world 1's {value}")
+    dist.destroy_process_group()
+    emit("distributed", seconds=time.perf_counter() - t0,
+         world1_backend=mesh.backend, log_n=log_n,
+         launches=launches, k1_launches_lde_commit=launches["tip5_permute"],
+         checked=checked, timed=timed, two_pass_log_n=DIST_TWO_PASS_LOG_N,
+         xfe_log_n=DIST_XFE_LOG_N, mmr_leafs=MMR_LEAFS,
+         mmr_append=MMR_APPEND, pinned_dist=True, dryrun_multichip_1=True,
+         multi_rank={name: [
+             {k: r[k] for k in ("rank", "backend", "device", "ntt_wall_ms",
+                                "merkle_root_wall_ms", "lde_commit_wall_ms")}
+             for r in ranks] for name, ranks in multi.items()},
+         nccl_multi_card=(sorted(k for k in multi if k.startswith("nccl"))
+                          if cards >= 2 else "not run: 1 card"),
+         multi_rank_note="gloo ranks share one card and stage each "
+                         "collective through host memory: their times are "
+                         "host-staged wall ms")
+    return {"launches": launches}
+
+
 def phase_probe_pass(rng) -> dict:
     """K4 against its twin, then the pass probe's path (K3 and K4)."""
     from twenty_first_tpu_torch.math import gf, ntt
@@ -2143,6 +2429,7 @@ def main() -> None:
     engine = phase_polynomial(poly_counters)["launches"]
     host = phase_host_layers((tip5_cuda.tip5_permute, tip5_cuda.merkle_level))
     large = phase_ntt_large((ntt_cuda.ntt_local_pass,))
+    dist = phase_distributed(counters)["launches"]
     probe_pass = phase_probe_pass(rng)
     probe_alu = phase_probe_alu(rng)
     rate = probe_alu["instructions_per_s"]
@@ -2174,22 +2461,25 @@ def main() -> None:
          "launches": launches["tip5_permute"]
                      + merkle["tip5_permute"]
                      + batch["launches"]["tip5_permute"]
-                     + host["launches"]["tip5_permute"],
+                     + host["launches"]["tip5_permute"]
+                     + dist["tip5_permute"],
          "launches_by_path": {"slice": launches["tip5_permute"],
                               "merkle_objects": merkle["tip5_permute"],
                               "tip5_batch": batch["launches"]["tip5_permute"],
-                              "host_layers": host["launches"]["tip5_permute"]},
+                              "host_layers": host["launches"]["tip5_permute"],
+                              "distributed": dist["tip5_permute"]},
          **k1, **NO_LIBRARY, "trace_mode": batch["trace"]},
         {"name": "merkle_commit", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/tip5.cu",
          "replaces": f"{pallas}:262 (T2)",
-         "launches": sum(path[k] for path in (launches, merkle)
+         "launches": sum(path[k] for path in (launches, merkle, dist)
                          for k in ("merkle_level", "merkle_commit"))
                      + host["launches"]["merkle_level"],
          "launches_by_path": {
              **{path: {k: counts[k] for k in ("merkle_level", "merkle_commit")}
                 for path, counts in (("slice", launches),
-                                     ("merkle_objects", merkle))},
+                                     ("merkle_objects", merkle),
+                                     ("distributed", dist))},
              "host_layers": {"merkle_level": host["launches"]["merkle_level"]}},
          "merkle_sweep_host_up_to": host["sweep"]["host_up_to"],
          **k2, **NO_LIBRARY},
@@ -2203,6 +2493,7 @@ def main() -> None:
                      + poly["launches"]["ntt_local_pass"]
                      + engine["ntt_local_pass"]
                      + large["launches"]["ntt_local_pass"]
+                     + dist["ntt_local_pass"]
                      + probe_pass["launches"]["ntt_local_pass"],
          "launches_by_path": {
              "slice": launches["ntt_local_pass"],
@@ -2210,6 +2501,7 @@ def main() -> None:
              "poly_batch": poly["launches"]["ntt_local_pass"],
              "polynomial": engine["ntt_local_pass"],
              "ntt_large": large["launches"]["ntt_local_pass"],
+             "distributed": dist["ntt_local_pass"],
              "probe_pass": probe_pass["launches"]["ntt_local_pass"]},
          "t7_launches_per_pass": probe_pass["k3_per_tile_launches"],
          "three_pass": large["three_pass"],

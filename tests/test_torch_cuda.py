@@ -5,11 +5,14 @@ Marked ``cuda``: without a CUDA device every test skips. On a GPU machine:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+import test_torch_dist as tdist
 from twenty_first_tpu.math import gf as jgf
 from twenty_first_tpu.math import ntt as jntt
 from twenty_first_tpu.math.b_field_element import P
@@ -452,3 +455,73 @@ def test_three_pass_ntt_matches_the_plain_twin(cuda):
     w = x.clone()
     assert ntt.ntt(w, out=w) is w
     assert torch.equal(w, y)
+
+
+# -- the distributed layer (parallel/) on the card -----------------------------
+
+
+@contextlib.contextmanager
+def _world_of_one():
+    """A world-1 NCCL mesh on the card in this process, its group destroyed
+    on the way out when this made it."""
+    import torch.distributed as dist
+    from twenty_first_tpu_torch.parallel import mesh as mesh_mod
+
+    made = not dist.is_initialized()
+    try:
+        yield mesh_mod.make_mesh(1)
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _check_cases(results: dict, d: int) -> None:
+    for key, value in results.items():
+        if key not in ("rank", "backend", "device"):
+            np.testing.assert_equal(value, tdist._expected(key, d),
+                                    err_msg=str(key))
+
+
+def test_distributed_cases_at_world_one_over_nccl(cuda):
+    """Every case of tests/test_torch_dist.py at world 1, over NCCL, its
+    transforms and trees on K3, K1 and K2, against the JAX package."""
+    with _world_of_one() as mesh:
+        assert (mesh.backend, mesh.device.type) == ("nccl", "cuda")
+        before = (ntt_cuda.ntt_local_pass.launches,
+                  tip5_cuda.tip5_permute.launches)
+        results = tdist._cases(mesh)
+        assert ntt_cuda.ntt_local_pass.launches > before[0]
+        assert tip5_cuda.tip5_permute.launches > before[1]
+    _check_cases(results, 1)
+
+
+def test_distributed_cases_on_two_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """The same cases on two spawned ranks over gloo, both on the card."""
+    from twenty_first_tpu_torch import _build
+    from twenty_first_tpu_torch.parallel import mesh as mesh_mod
+
+    _build.load()  # built here, so that no rank runs nvcc
+    ranks = mesh_mod.launch(tdist._rank_cases, 2, backend="gloo",
+                            device="cuda", timeout=600, workdir=str(tmp_path))
+    assert [(r["rank"], r["backend"]) for r in ranks] == [(0, "gloo"),
+                                                        (1, "gloo")]
+    assert all(r["device"].startswith("cuda") for r in ranks)
+    for r in ranks:
+        _check_cases(r, 2)
+
+
+def test_lde_commit_and_merkle_root_at_2_12_match_the_jax_mesh(cuda):
+    from twenty_first_tpu.parallel import distributed_merkle_root as jroot
+    from twenty_first_tpu.parallel import make_mesh as jmesh
+    from twenty_first_tpu.parallel.pipeline import (
+        dist_lde_commit_values as jlde)
+    from twenty_first_tpu_torch.parallel import distributed_merkle_root
+    from twenty_first_tpu_torch.parallel.pipeline import dist_lde_commit_values
+
+    x = _rand(1 << 12)
+    leafs = _rand((1 << 12, 5))
+    with _world_of_one() as mesh:
+        got = (dist_lde_commit_values(x, mesh),
+               distributed_merkle_root(leafs, mesh))
+    want = (jlde(x, jmesh(2)), jroot(leafs, jmesh(2)))
+    assert [_vals(d) for d in got] == [_vals(d) for d in want]

@@ -519,7 +519,14 @@ def test_port_never_imports_jax():
             "twenty_first_tpu_torch.tip5.inverse",
             "twenty_first_tpu_torch.tip5.blake3_mini",
             "twenty_first_tpu_torch.tip5.constants",
-            "twenty_first_tpu_torch.probes.merkle_probe", "chip_smoke"]
+            "twenty_first_tpu_torch.probes.merkle_probe",
+            "twenty_first_tpu_torch.parallel",
+            "twenty_first_tpu_torch.parallel.mesh",
+            "twenty_first_tpu_torch.parallel.dist_ntt",
+            "twenty_first_tpu_torch.parallel.dist_merkle",
+            "twenty_first_tpu_torch.parallel.dist_mmr",
+            "twenty_first_tpu_torch.parallel.scaling",
+            "twenty_first_tpu_torch.probes.dist_probe", "chip_smoke"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' "
               "or m.startswith(('jax.', 'jaxlib', 'twenty_first_tpu.')) "

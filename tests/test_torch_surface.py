@@ -5,8 +5,7 @@ class it defines.
 A module "defines" the names it assigns, its functions and classes, and,
 in a package ``__init__`` or the prelude (the re-export modules), the names
 it imports from the package itself. The only exceptions are listed below:
-ROADMAP A.8, not ported by decision, and the distributed layer of A.7,
-which is still to come. The JAX package's ``ops/*_pallas.py``,
+ROADMAP A.8, not ported by decision. The JAX package's ``ops/*_pallas.py``,
 ``ops/tip5_mxu.py`` and ``ops/tip5_packed.py`` are not compared: the port's
 ``ops/`` counterparts of its kernels have their own names."""
 
@@ -34,16 +33,6 @@ NOT_PORTED = {
     "parallel.pipeline": {"lde_commit_diags", "lde_scrambled_tables",
                           "trace_lde_commit_scrambled"},
 }
-#: ROADMAP A.7, the distributed layer: still to come
-DISTRIBUTED = {
-    "parallel.mesh": None, "parallel.dist_ntt": None,
-    "parallel.dist_merkle": None, "parallel.dist_mmr": None,
-    "parallel.scaling": None,
-    "parallel": {"AXIS", "make_mesh", "sharded", "distributed_ntt",
-                 "distributed_ntt_values", "distributed_ntt_xfe_values",
-                 "distributed_merkle_root", "distributed_merkle_root_limbs"},
-    "parallel.pipeline": {"make_dist_lde_commit", "dist_lde_commit_values"},
-}
 NOT_COMPARED = ("ops.tip5_pallas", "ops.ntt_pallas", "ops.tip5_mxu",
                 "ops.tip5_packed")
 MODULES = sorted(
@@ -55,10 +44,9 @@ MODULES = sorted(
 
 def _excepted(module: str) -> set | None:
     """The names left out of ``module`` (None: the whole module)."""
-    parts = [d[module] for d in (NOT_PORTED, DISTRIBUTED) if module in d]
-    if any(p is None for p in parts):
-        return None
-    return set().union(*parts)
+    if module not in NOT_PORTED:
+        return set()
+    return NOT_PORTED[module]
 
 
 def _defined(mod) -> tuple[set, set]:
@@ -91,20 +79,18 @@ def _public(cls) -> set:
 def test_the_exceptions_are_the_roadmaps():
     """Every listed exception is a real JAX module or name that the port
     lacks, so the list cannot hide a port that has caught up."""
-    for table in (NOT_PORTED, DISTRIBUTED):
-        for module, names in table.items():
-            assert module in MODULES, module
-            try:
-                port = importlib.import_module(
-                    f"twenty_first_tpu_torch.{module}")
-            except ModuleNotFoundError:
-                assert names is None, module
-                continue
-            jmod = importlib.import_module(f"twenty_first_tpu.{module}")
-            assert names is not None, module
-            for name in names:
-                assert hasattr(jmod, name) and not hasattr(port, name), \
-                    (module, name)
+    for module, names in NOT_PORTED.items():
+        assert module in MODULES, module
+        try:
+            port = importlib.import_module(f"twenty_first_tpu_torch.{module}")
+        except ModuleNotFoundError:
+            assert names is None, module
+            continue
+        jmod = importlib.import_module(f"twenty_first_tpu.{module}")
+        assert names is not None, module
+        for name in names:
+            assert hasattr(jmod, name) and not hasattr(port, name), \
+                (module, name)
 
 
 @pytest.mark.parametrize("module", MODULES)

@@ -70,6 +70,9 @@ from ..ops import ntt_cuda, poly_cuda
 from ..ops.ntt_cuda import MAX_LOG_T, bit_reverse_permutation  # noqa: F401
 
 MAX_LOG_N = 32
+#: log2 of the longest transform one pass of K3 takes here; longer ones
+#: take two (the CPU tests lower it to reach that route at small lengths)
+ONE_PASS_MAX_LOG_N = MAX_LOG_T
 #: log2 of the shortest length that takes three passes of K3 (two passes
 #: reach 2^(2 * MAX_LOG_T))
 THREE_PASS_LOG_N = 2 * MAX_LOG_T + 1
@@ -176,7 +179,7 @@ def ntt_tables(n: int, inverse: bool = False, device="cuda") -> NttTables:
             dev(stage_twiddles(log_a, inverse)),
             dev(_pow_table(root, a, c)),
             dev(_pow_table(pow(root, c, P), a, b)))
-    if log_n <= MAX_LOG_T:
+    if log_n <= ONE_PASS_MAX_LOG_N:
         return NttTables(n, inverse,
                          gf.from_u64(stage_twiddles(log_n, inverse)).to(device))
     log_n1, log_n2 = four_step_split(log_n)
@@ -215,7 +218,7 @@ def ntt(x, inverse: bool = False, *, tables: NttTables | None = None,
             raise ValueError("tables, plain, post and out take a tensor")
         return _ntt_objects(x, inverse)
     n = x.shape[-1]
-    log_n = _check_len(n)
+    _check_len(n)
     if post is not None and post.shape != (n,):
         raise ValueError(f"post must be an ({n},) vector, got "
                          f"{tuple(post.shape)}")
@@ -229,8 +232,6 @@ def ntt(x, inverse: bool = False, *, tables: NttTables | None = None,
         tables = _cached_tables(n, inverse, x.device)
     if tables.n != n or tables.inverse != inverse:
         raise ValueError("tables were built for another size or direction")
-    local_pass = (ntt_cuda.ntt_local_pass_plain if plain
-                  else ntt_cuda.ntt_local_pass)
     scale = pow(n, P - 2, P) if inverse else 1
     rows = x.reshape(-1, n).contiguous()
     if tables.tw3 is not None:
@@ -241,31 +242,81 @@ def ntt(x, inverse: bool = False, *, tables: NttTables | None = None,
                   and out.untyped_storage().data_ptr()
                   != rows.untyped_storage().data_ptr())
         res = out.view(-1, n) if direct else torch.empty_like(rows)
-        _three_pass(rows, res, tables, local_pass, scale, post)
+        _three_pass(rows, res, tables, (ntt_cuda.ntt_local_pass_plain
+                                        if plain else ntt_cuda.ntt_local_pass),
+                    scale, post)
         if out is None:
             return res.view(x.shape)
         if res.data_ptr() != out.data_ptr():
             out.copy_(res.view(x.shape))
         return out
     res = torch.empty_like(rows) if out is None else out
-    if tables.diag is None:
-        # one pass; the rows are its columns: views (1, n, rows), and post
-        # is the same diagonal for every column
-        diag = (None if post is None
-                else post.view(n, 1).expand(n, rows.shape[0]))
-        local_pass(rows.t().unsqueeze(0), tables.tw1, diag=diag, scale=scale,
-                   out=res.view(-1, n).t().unsqueeze(0))
-        return res.view(x.shape)
-    log_n1, log_n2 = four_step_split(log_n)
-    n1, n2 = 1 << log_n1, 1 << log_n2
-    y = local_pass(rows.view(-1, n2, n1), tables.tw1,
-                   diag=tables.diag)  # Y[b, k2, j1]
-    # Z[b, k1, k2] is output k = k2 + n2 * k1, so post is pass 2's [k1, k2]
-    # diagonal
-    local_pass(y.transpose(1, 2), tables.tw2,
-               diag=None if post is None else post.view(n1, n2),
-               scale=scale, out=res.view(-1, n1, n2))
+    ntt_columns(rows.view(-1, n, 1), res.view(-1, n, 1), inverse,
+                tables=tables, diag=None if post is None else post.view(n, 1),
+                scale=scale, plain=plain)
     return res.view(x.shape)
+
+
+def ntt_columns(x, out, inverse: bool = False, *,
+                tables: NttTables | None = None, diag=None, scale: int = 1,
+                plain: bool = False):
+    """The length-t NTT along axis 1 of the (B, t, C) view ``x`` into the
+    (B, t, C) view ``out`` (any strides K3 takes), times ``diag`` (a (t, C)
+    or (B, t, C) view) and ``scale``, for t up to 2^(THREE_PASS_LOG_N - 1):
+    ``ntt()``'s one- and two-pass routes, and the distributed NTT's passes
+    (``parallel/dist_ntt.py``). Returns ``out``.
+
+    With one column (C = 1, the row layout) the batches' axis becomes K3's
+    column axis. Up to 2^ONE_PASS_MAX_LOG_N one pass of K3; above, the
+    four steps with t = m1 * m2, j = j1 + m1 j2, k = k2 + m2 k1: pass 1
+    over j2 into a buffer laid out [b, k2, j1, c], with w_t^(j1 k2) in its
+    epilogue, then pass 2 over j1 writing output k2 + m2 k1, with ``diag``
+    and ``scale`` in its epilogue. K3's views have three axes, so in that
+    route either C = 1 (j1 is K3's column) or B = 1 (c is)."""
+    local_pass = (ntt_cuda.ntt_local_pass_plain if plain
+                  else ntt_cuda.ntt_local_pass)
+    nb, t, c = x.shape
+    if diag is not None:
+        diag = diag.expand(x.shape)
+    if t == 1:  # a length-1 transform is a copy
+        y = x if diag is None else gf.mul(x, diag)
+        return out.copy_(gf.mul_const(y, scale) if scale != 1 else y)
+    if t >= 1 << THREE_PASS_LOG_N:
+        raise ValueError(f"ntt_columns takes up to 2^{THREE_PASS_LOG_N - 1} "
+                         f"elements a column, got {t}")
+    if tables is None:
+        tables = _cached_tables(t, inverse, x.device)
+    if tables.diag is None:  # one pass; a row layout's rows are its columns
+        if c == 1:
+            x, diag = x.transpose(0, 2), (None if diag is None
+                                          else diag.transpose(0, 2))
+        local_pass(x, tables.tw1, diag=diag, scale=scale,
+                   out=out.transpose(0, 2) if c == 1 else out)
+        return out
+    if nb > 1 and c > 1:
+        raise ValueError("two passes take one batch or one column")
+    m2, m1 = tables.diag.shape  # w_t^(j1 k2) laid out [k2, j1]
+    (sb, st, sc), (ob, ot, oc) = x.stride(), out.stride()
+    if diag is not None:
+        db, dt, dc = diag.stride()
+    if c == 1:  # the row layout: K3 views (b, k2, j1), then (b, j1, k2)
+        y = local_pass(x.as_strided((nb, m2, m1), (sb, m1 * st, st)),
+                       tables.tw1, diag=tables.diag)
+        if diag is not None:
+            diag = diag.as_strided((nb, m1, m2), (db, m2 * dt, dt))
+        local_pass(y.transpose(1, 2), tables.tw2, diag=diag, scale=scale,
+                   out=out.as_strided((nb, m1, m2), (ob, m2 * ot, ot)))
+        return out
+    # the column layout: K3 views (j1, k2, c), then (k2, j1, c)
+    y = torch.empty((m2, m1, c), dtype=x.dtype, device=x.device)
+    local_pass(x.as_strided((m1, m2, c), (st, m1 * st, sc)), tables.tw1,
+               diag=tables.diag.t().unsqueeze(-1).expand(m1, m2, c),
+               out=y.transpose(0, 1))
+    if diag is not None:
+        diag = diag.as_strided((m2, m1, c), (dt, m2 * dt, dc))
+    local_pass(y, tables.tw2, diag=diag, scale=scale,
+               out=out.as_strided((m2, m1, c), (ot, m2 * ot, oc)))
+    return out
 
 
 def _three_pass(rows, res, tables: NttTables, local_pass, scale: int,

@@ -1,8 +1,8 @@
 """STARK trace LDE + Tip5 Merkle commit: the library's flagship step.
 
-The counterpart of ``twenty_first_tpu/parallel/pipeline.py`` (single
-device; the mesh-sharded variant is not ported yet). ``trace_lde_commit``
-low-degree-extends a (W, n) trace and commits to it:
+The counterpart of ``twenty_first_tpu/parallel/pipeline.py``.
+``trace_lde_commit`` low-degree-extends a (W, n) trace on one device and
+commits to it:
 
 1. interpolate each column: an inverse NTT over the trace domain;
 2. scale coefficient j by offset^j (the coset offset, GENERATOR = 7 by
@@ -15,10 +15,21 @@ low-degree-extends a (W, n) trace and commits to it:
 
 On a CUDA tensor the NTTs run through K3, the leaf hash through K1 and the
 tree through K2; ``plain=True`` runs the plain twins instead, on any device.
+
+``make_dist_lde_commit`` and ``dist_lde_commit_values`` are the variant
+over a mesh (``parallel/mesh.py``): the distributed NTT of one vector in
+its Z layout (``dist_ntt``: K3, one all-to-all), each rank's rows hashed
+by the variable-length sponge (K1, one launch per absorb), and the
+distributed Merkle root over the n2 leafs (``dist_merkle``: K2, one
+all-gather). Leaf k2 is the hash of X[k2::n2], the stride-n2 slice of the
+natural-order codeword, not of a natural-order row.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -29,6 +40,9 @@ from ..math.b_field_element import GENERATOR
 from ..ops import tip5_commit
 from ..tip5 import permutation as tip5
 from ..tip5.constants import DIGEST_LENGTH, RATE, STATE_SIZE
+from ..tip5.digest import Digest
+from . import dist_merkle, dist_ntt
+from .mesh import AXIS, Mesh, shard_host_array
 
 
 def _log2_exact(n: int, what: str) -> int:
@@ -135,3 +149,35 @@ def lde_commit(x, plain: bool = False):
                                     plain=plain)
     return tip5_commit.reduce_layers(leafs, log_rows, tables=tables,
                                      plain=plain)
+
+
+@functools.lru_cache(maxsize=16)
+def make_dist_lde_commit(mesh: Mesh, log_n: int):
+    """The distributed LDE + commit of 2^log_n coefficients: a function of
+    this rank's (n2, n1/d) column block (an int64 carrier on
+    ``mesh.device``; ``plain`` runs the twins) returning the (1, 5) root
+    on every rank."""
+    dist_ntt._check_divisible(log_n, mesh.size)
+    log_n2 = ntt_mod.four_step_split(log_n)[1]
+
+    def run(block, plain: bool = False):
+        z = dist_ntt.distributed_ntt(block, mesh, plain=plain)  # (n2/d, n1)
+        leafs = tip5.hash_varlen_padded(
+            tip5.pad_for_varlen(z), tables=tip5.tip5_tables(z.device),
+            plain=plain)
+        return dist_merkle._root(leafs, mesh, log_n2, plain)
+
+    return run
+
+
+def dist_lde_commit_values(values, mesh: Mesh, *,
+                           plain: bool = False) -> Digest:
+    """Host convenience: every rank passes the whole coefficient vector
+    (n,) and gets the committed root."""
+    values = np.asarray(values, dtype=np.uint64)
+    n = values.shape[-1]
+    log_n = _log2_exact(n, "vector length")
+    n1, n2 = dist_ntt._split_sizes(log_n)
+    step = make_dist_lde_commit(mesh, log_n)
+    block = shard_host_array(mesh, (None, AXIS), values.reshape(n2, n1))
+    return Digest.from_array(gf.to_u64(step(block, plain))[0])
