@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 It builds the hand-written kernels from twenty_first_tpu_torch/csrc with
 nvcc, holds each against its plain PyTorch twin on the card (exact
 equality: this is integer field arithmetic), reproduces values pinned from
-the JAX reference, and drives ten paths, each with every launch counter
+the JAX reference, and drives eleven paths, each with every launch counter
 set to 0 just before it and read just after:
 
 * the flagship step (W = 8 trace columns, n = 2^20, expansion 4: a
@@ -70,6 +70,14 @@ set to 0 just before it and read just after:
   2^16; dryrun_multichip(1); PINNED_DIST; then four gloo ranks sharing the
   card (spawned, the kernels built first) and, with two cards or more,
   NCCL with a card a rank, each value equal to world 1's;
+* the scrambled route of the flagship step (parallel/pipeline.py's
+  trace_lde_commit_scrambled at W = 8, n = 2^20, expansion 4: the DIF
+  iNTT and the no-reverse NTT on K3's order modes, K1, K2's two launches):
+  K3's rev_in and rev_out at every length and at the route's four pass
+  shapes against the twin, four_step_ntt_scrambled at 2^24 both ways and
+  the (13, 11) split (two K3 passes a factor) against ntt(), the root
+  equal to SLICE_ROOT and the leaf digests to the natural step's, both
+  routes timed in turns (host medians, device ms, peak memory, profiles);
 * the NTT pass probe over 2^24 elements (K3 and K4);
 * the ALU probe, chains of lazy field ops (K5) in both forms.
 
@@ -2272,6 +2280,251 @@ def phase_distributed(counters) -> dict:
     return {"launches": launches}
 
 
+# the scrambled route's check of K3's order modes in two passes: a 2^24
+# transform at a split whose first factor takes two passes of K3
+SCRAMBLED_LOG_N = 24
+SCRAMBLED_TWO_PASS_SPLIT = (13, 11)
+
+
+def scrambled_pass_shapes() -> dict:
+    """The four K3 passes of the full-width scrambled commit (W, N, E) by
+    name: (x view, out view, diagonal, stage twiddles' log2 and direction,
+    order mode), on the card; the scrambled route's own views."""
+    from twenty_first_tpu_torch.math import ntt
+    from twenty_first_tpu_torch.parallel import pipeline
+
+    log_n = N.bit_length() - 1
+    log_e = E.bit_length() - 1
+    l1, l2 = ntt.four_step_split(log_n)
+    n1, n2, n1e = 1 << l1, 1 << l2, 1 << (l1 + log_e)
+    d1, pw_scr, d4 = pipeline.lde_scrambled_tables(N, E)
+    trace = torch.empty((W, N), dtype=torch.int64, device="cuda")
+    y = torch.empty((W, n2, n1), dtype=torch.int64, device="cuda")
+    padded = torch.zeros((W, n1, E, n2), dtype=torch.int64, device="cuda")
+    z = torch.empty((W, n1e, n2), dtype=torch.int64, device="cuda")
+    evals = torch.empty((W, n2, n1e), dtype=torch.int64, device="cuda")
+    return {
+        "dif_pass1": (trace.view(W, n2, n1), y, d1, l2, True, "rev_out"),
+        "dif_pass2": (y.transpose(1, 2), padded[:, :, 0], pw_scr, l1, True,
+                      "rev_out"),
+        "norev_pass1": (padded.view(W, n1e, n2), z, d4, l1 + log_e, False,
+                        "rev_in"),
+        "norev_pass2": (z.transpose(1, 2), evals, None, l2, False, "rev_in")}
+
+
+def scrambled_k3_checks(rng) -> dict:
+    """K3's order modes against the twin on the card: every length 2^1..2^12
+    in both layouts and modes, with and without a diagonal and a scale, in
+    place too; then each of the scrambled commit's four pass shapes, timed
+    beside the twin with its bound."""
+    from twenty_first_tpu_torch.math import gf, ntt
+    from twenty_first_tpu_torch.ops import ntt_cuda
+
+    checked = 0
+    for log_t in range(1, 13):
+        t = 1 << log_t
+        tw = gf.from_u64(ntt.stage_twiddles(log_t, log_t % 2 == 0)).cuda()
+        diag = edge_field(rng, (t, 37))
+        n_inv = pow(t, P - 2, P)
+        for layout in ("cols_fast", "elems_fast"):
+            if layout == "cols_fast":
+                x = edge_field(rng, (2, t, 37))
+            else:
+                x = edge_field(rng, (2, 37, t)).transpose(1, 2)
+            for mode in ("rev_in", "rev_out"):
+                for d, scale in ((None, 1), (diag, 1), (None, n_inv),
+                                 (diag, n_inv)):
+                    require_equal(
+                        f"K3 {mode} log_t={log_t} {layout} "
+                        f"diag={d is not None} scale={scale != 1}",
+                        ntt_cuda.ntt_local_pass(x, tw, diag=d, scale=scale,
+                                                **{mode: True}),
+                        ntt_cuda.ntt_local_pass_plain(x, tw, diag=d,
+                                                      scale=scale,
+                                                      **{mode: True}))
+                    checked += 1
+                want = ntt_cuda.ntt_local_pass_plain(x, tw, diag=diag,
+                                                     **{mode: True})
+                inplace = x.clone()
+                ntt_cuda.ntt_local_pass(inplace, tw, diag=diag, out=inplace,
+                                        **{mode: True})
+                require_equal(f"K3 {mode} in place log_t={log_t} {layout}",
+                              inplace, want)
+                checked += 1
+    shapes = {}
+    for name, (x, out, d, log_t, inverse, mode) in \
+            scrambled_pass_shapes().items():
+        x.copy_(random_field(rng, tuple(x.shape)))
+        tw = gf.from_u64(ntt.stage_twiddles(log_t, inverse)).cuda()
+        kw = {"diag": d, mode: True}
+        err = require_equal(f"K3 {mode} at {name} {tuple(x.shape)}",
+                            ntt_cuda.ntt_local_pass(x, tw, out=out, **kw),
+                            ntt_cuda.ntt_local_pass_plain(x, tw, **kw))
+        checked += 1
+        b, t, c = x.shape
+        products = b * c * (t // 2) * log_t + (x.numel() if d is not None
+                                               else 0)
+        shapes[name] = {
+            "shape": list(x.shape), "strides_in": list(x.stride()),
+            "strides_out": list(out.stride()), "mode": mode,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: ntt_cuda.ntt_local_pass(x, tw, out=out,
+                                                          **kw), 10),
+            "wall_ms": wall_ms(lambda: ntt_cuda.ntt_local_pass(
+                x, tw, out=out, **kw), 10),
+            "plain_ms": cuda_ms(lambda: ntt_cuda.ntt_local_pass_plain(
+                x, tw, **kw), 3),
+            **bound(16 * x.numel() + (8 * d.numel() if d is not None else 0),
+                    IMAD_PER_MUL * products)}
+    return {"checked": checked, "passes": shapes}
+
+
+def natural_transforms(step, trace):
+    """The natural step's two transforms alone (K3's four passes): the
+    iNTT with its coset scaling into the padded planes' head, the NTT."""
+    from twenty_first_tpu_torch.math import ntt
+
+    padded = torch.zeros((W, N * E), dtype=torch.int64, device="cuda")
+    inv, fwd = step._ntt_tables("inv", N, True), step._ntt_tables(
+        "fwd", N * E, False)
+
+    def run():
+        ntt.ntt(trace, inverse=True, tables=inv, post=step.offset_powers,
+                out=padded[:, :N])
+        return ntt.ntt(padded, tables=fwd)
+
+    return run
+
+
+def scrambled_transforms(trace, tables):
+    """The scrambled route's two transforms alone (K3's four passes): the
+    DIF iNTT into the padded layout, the no-reverse NTT."""
+    from twenty_first_tpu_torch.math import ntt
+
+    l1, l2 = ntt.four_step_split(N.bit_length() - 1)
+    log_e = E.bit_length() - 1
+    d1, pw_scr, d4 = tables
+    padded = torch.zeros((W, 1 << l1, E, 1 << l2), dtype=torch.int64,
+                         device="cuda")
+
+    def run():
+        ntt._four_step(trace, (l1, l2), True, d1, order="dif",
+                       post_diag=pw_scr, out=padded[:, :, 0])
+        return ntt._four_step(padded.view(W, N * E), (l1 + log_e, l2), False,
+                              d4, order="norev")
+
+    return run
+
+
+def phase_scrambled(counters) -> dict:
+    """The JAX package's other route of the flagship step, the scrambled
+    LDE commit (K3 under its order modes, K1, K2), at full width: K3's
+    modes against the twin, ``four_step_ntt_scrambled`` at 2^24 both ways
+    and the two-pass modes at a (13, 11) split against ``ntt()`` through
+    the scrambled index, the commit's root equal to SLICE_ROOT and its leaf
+    digests to the natural step's, then both routes timed in turns."""
+    from twenty_first_tpu_torch.math import gf, ntt
+    from twenty_first_tpu_torch.parallel import pipeline
+    from twenty_first_tpu_torch.probes import timing
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    k3 = scrambled_k3_checks(rng)
+    checked = {}
+    # the 2^24 scrambled four-step both ways, one K3 pass a factor
+    log_n = SCRAMBLED_LOG_N
+    x = random_field(rng, (1 << log_n,))
+    idx = torch.from_numpy(ntt.scrambled_index(log_n).astype(np.int64)).cuda()
+    want = ntt.ntt(x)
+    got = gf.carrier_of(ntt.four_step_ntt_scrambled(
+        gf.limbs_of(x), log_n, False, ntt._scrambled_diag_device(log_n,
+                                                                 False)))
+    checked["scrambled_forward_2^24"] = require_equal(
+        "four_step_ntt_scrambled 2^24", got[idx], want)
+    got = gf.carrier_of(ntt.four_step_ntt_scrambled(
+        gf.limbs_of(x[idx]), log_n, True,
+        ntt._scrambled_diag_device(log_n, True)))
+    checked["scrambled_inverse_2^24"] = require_equal(
+        "four_step_ntt_scrambled^-1 2^24", got, ntt.intt(x))
+    # K3's order modes in two passes: a first factor of 2^13
+    split = SCRAMBLED_TWO_PASS_SPLIT
+    r1 = ntt.bit_reverse_permutation(split[0])
+    r2 = ntt.bit_reverse_permutation(split[1])
+    sidx = torch.from_numpy(
+        (r2[None, :] + (r1[:, None] << split[1])).reshape(-1)).cuda()
+    scr = gf.carrier_of(ntt.four_step_dif_general(
+        gf.limbs_of(x), log_n, False,
+        ntt._diag_device_general(log_n, False, True, split), split=split))
+    checked["dif_general_2^24_split_13_11"] = require_equal(
+        f"four_step_dif_general 2^24 split {split}", scr, want[sidx])
+    back = gf.carrier_of(ntt.four_step_norev_general(
+        gf.limbs_of(scr), log_n, True,
+        ntt._norev_diag_device(log_n, True, split), split=split,
+        post_const=pow(1 << log_n, P - 2, P)))
+    checked["norev_general_2^24_split_13_11"] = require_equal(
+        f"four_step_norev_general 2^24 split {split}", back, x)
+    del x, want, got, scr, back, idx, sidx
+    # the scrambled commit at full width: the path, once, counters at 0
+    step = pipeline.TraceLdeCommit(W, N, E)
+    tables = pipeline.lde_scrambled_tables(N, E)
+    trace = random_field(np.random.default_rng(2026), (W, N))
+
+    def scrambled():
+        return pipeline.trace_lde_commit_scrambled(trace, E, tables)
+
+    root, launches = run_path(counters, scrambled)
+    require_launched("scrambled", launches)
+    if launches["ntt_local_pass"] != 4:
+        raise AssertionError(f"scrambled commit: {launches}, not 4 K3 passes")
+    _, natural_launches = run_path(counters, lambda: step(trace))
+    if launches != natural_launches:
+        raise AssertionError(f"scrambled commit launches {launches} != the "
+                             f"natural step's {natural_launches}")
+    if gf.to_u64(root).tolist() != [SLICE_ROOT]:
+        raise AssertionError(f"scrambled root {gf.to_u64(root)} != "
+                             f"SLICE_ROOT")
+    checked["leaf_digests"] = require_equal(
+        "scrambled leaf digests vs TraceLdeCommit.leaf_digests",
+        pipeline.scrambled_leaf_digests(trace, E, tables),
+        step.leaf_digests(trace))
+    checked["root_plain"] = require_equal(
+        "scrambled root vs plain on the card", root,
+        pipeline.trace_lde_commit_scrambled(trace, E, tables, plain=True))
+    # both routes timed in turns: host medians of 21 calls interleaved,
+    # device ms natural, scrambled, scrambled, natural, each route's two
+    # transforms (K3's four passes, nothing else) the same way; the peak
+    # memory a call adds to what is allocated before it
+    routes = {"natural": lambda: step(trace), "scrambled": scrambled}
+    transforms = {"natural": natural_transforms(step, trace),
+                  "scrambled": scrambled_transforms(trace, tables)}
+    walls = {k: [] for k in routes}
+    for fn in routes.values():
+        fn()
+    for _ in range(21):
+        for k, fn in routes.items():
+            walls[k] += timing.wall_times(fn, 1, warmup=0)
+    timed = {k: {"wall_ms": statistics.median(v), "wall_ms_min": min(v),
+                 "wall_ms_max": max(v), "runs": len(v)}
+             for k, v in walls.items()}
+    for k in ("natural", "scrambled", "scrambled", "natural"):
+        timed[k].setdefault("ms", []).append(cuda_ms(routes[k], 21))
+        timed[k].setdefault("k3_passes_ms", []).append(
+            cuda_ms(transforms[k], 21))
+    for k, fn in routes.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        timed[k]["peak_bytes_added"] = torch.cuda.max_memory_allocated() - before
+        timed[k]["profile"] = device_breakdown(fn)
+    emit("scrambled", seconds=time.perf_counter() - t0, w=W, n=N,
+         expansion=E, root=gf.to_u64(root)[0].tolist(), launches=launches,
+         k3_checked=k3["checked"], k3_passes=k3["passes"], checked=checked,
+         two_pass_split=list(split), timed=timed)
+    return {"launches": launches, "passes": k3["passes"]}
+
+
 def phase_probe_pass(rng) -> dict:
     """K4 against its twin, then the pass probe's path (K3 and K4)."""
     from twenty_first_tpu_torch.math import gf, ntt
@@ -2430,6 +2683,8 @@ def main() -> None:
     host = phase_host_layers((tip5_cuda.tip5_permute, tip5_cuda.merkle_level))
     large = phase_ntt_large((ntt_cuda.ntt_local_pass,))
     dist = phase_distributed(counters)["launches"]
+    scrambled = phase_scrambled(counters)
+    scr = scrambled["launches"]
     probe_pass = phase_probe_pass(rng)
     probe_alu = phase_probe_alu(rng)
     rate = probe_alu["instructions_per_s"]
@@ -2462,24 +2717,26 @@ def main() -> None:
                      + merkle["tip5_permute"]
                      + batch["launches"]["tip5_permute"]
                      + host["launches"]["tip5_permute"]
-                     + dist["tip5_permute"],
+                     + dist["tip5_permute"] + scr["tip5_permute"],
          "launches_by_path": {"slice": launches["tip5_permute"],
                               "merkle_objects": merkle["tip5_permute"],
                               "tip5_batch": batch["launches"]["tip5_permute"],
                               "host_layers": host["launches"]["tip5_permute"],
-                              "distributed": dist["tip5_permute"]},
+                              "distributed": dist["tip5_permute"],
+                              "scrambled": scr["tip5_permute"]},
          **k1, **NO_LIBRARY, "trace_mode": batch["trace"]},
         {"name": "merkle_commit", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/tip5.cu",
          "replaces": f"{pallas}:262 (T2)",
-         "launches": sum(path[k] for path in (launches, merkle, dist)
+         "launches": sum(path[k] for path in (launches, merkle, dist, scr)
                          for k in ("merkle_level", "merkle_commit"))
                      + host["launches"]["merkle_level"],
          "launches_by_path": {
              **{path: {k: counts[k] for k in ("merkle_level", "merkle_commit")}
                 for path, counts in (("slice", launches),
                                      ("merkle_objects", merkle),
-                                     ("distributed", dist))},
+                                     ("distributed", dist),
+                                     ("scrambled", scr))},
              "host_layers": {"merkle_level": host["launches"]["merkle_level"]}},
          "merkle_sweep_host_up_to": host["sweep"]["host_up_to"],
          **k2, **NO_LIBRARY},
@@ -2494,6 +2751,7 @@ def main() -> None:
                      + engine["ntt_local_pass"]
                      + large["launches"]["ntt_local_pass"]
                      + dist["ntt_local_pass"]
+                     + scr["ntt_local_pass"]
                      + probe_pass["launches"]["ntt_local_pass"],
          "launches_by_path": {
              "slice": launches["ntt_local_pass"],
@@ -2502,7 +2760,13 @@ def main() -> None:
              "polynomial": engine["ntt_local_pass"],
              "ntt_large": large["launches"]["ntt_local_pass"],
              "distributed": dist["ntt_local_pass"],
+             "scrambled": scr["ntt_local_pass"],
              "probe_pass": probe_pass["launches"]["ntt_local_pass"]},
+         "order_modes": {
+             "replaces": "twenty_first_tpu/math/ntt.py:941 (_local_pass "
+                         "with dif=True / norev=True: :1147, :1153); plain "
+                         "jnp, no Pallas kernel",
+             "passes": scrambled["passes"]},
          "t7_launches_per_pass": probe_pass["k3_per_tile_launches"],
          "three_pass": large["three_pass"],
          "largest_ntt": large["largest"],

@@ -42,10 +42,11 @@ _SIGNATURES = {
     "tf_tip5_occupancy": (_I, _I, _PI, _PI),
     # in, out, log_t, log_tc, ncols, nbatch, in strides (b, e, c),
     # out strides (b, e, c), tw, diag, diag strides (b, e, c), diag2,
-    # diag2 strides (b, e, c), scale, stream
+    # diag2 strides (b, e, c), scale, order (0 natural, 1 rev_in,
+    # 2 rev_out), stream
     "tf_ntt_local_pass": (_VP, _VP, _I, _I, _LL, _I, _LL, _LL, _LL, _LL, _LL,
                           _LL, _VP, _VP, _LL, _LL, _LL, _VP, _LL, _LL, _LL,
-                          _ULL, _VP),
+                          _ULL, _I, _VP),
     # log_t, log_tc, out block size, out resident blocks per SM
     "tf_ntt_occupancy": (_I, _I, _PI, _PI),
     # in, out, log_t, stage, ncols, in strides (e, c), out strides (e, c),

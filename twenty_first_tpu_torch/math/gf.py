@@ -16,10 +16,14 @@ CUDA kernels (``csrc/goldilocks.cuh``) are held against. The two
 exceptions are ``inverse_or_zero`` and ``batch_inversion``, which go
 through the wrappers of K8 and K7 (``ops/poly_cuda.py``: the kernel on a
 CUDA tensor, the twin on a CPU one) unless ``plain`` asks for their twins
-here.
+here. The JAX package's u32 limb helpers (``mul32``, ``add64``,
+``mul64_wide``, ...) are at the end with its names, taking and returning
+uint32 planes and computing through the carrier.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -355,3 +359,69 @@ def to_montgomery(a):
 def from_montgomery(m):
     """Montgomery representative (ANY u64) -> canonical m * 2^-64 mod p."""
     return mul_const(m, R_INV)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's u32 limb helpers: 64-bit arithmetic on (lo, hi) uint32
+# planes, which it needs because the TPU's lanes are 32 bits wide. Here they
+# take and return uint32 tensors at the seam and compute through the int64
+# carrier (the CPU torch has no uint32 add, compare or shift).
+# ---------------------------------------------------------------------------
+
+
+def _u32(x) -> torch.Tensor:
+    """The low 32 bits of an int64 tensor as a uint32 tensor."""
+    return (x & _M32).to(torch.uint32)
+
+
+def _words(x) -> tuple:
+    """A 128-bit (lo, hi) pair of u64 patterns -> four uint32 words,
+    little-endian."""
+    lo, hi = x
+    return _u32(lo), _u32(_shr(lo, 32)), _u32(hi), _u32(_shr(hi, 32))
+
+
+def mul32(a, b):
+    """Full 32x32 -> 64-bit product of uint32 planes as (lo, hi) uint32."""
+    return limbs_of(a.to(torch.int64) * b.to(torch.int64))
+
+
+def add64(a, b):
+    """(a + b) mod 2^64 of (lo, hi) pairs, with the carry-out (uint32 0/1)."""
+    x = carrier_of(a)
+    s = x + carrier_of(b)
+    return limbs_of(s), _ult(s, x).to(torch.uint32)
+
+
+def sub64(a, b):
+    """(a - b) mod 2^64 of (lo, hi) pairs, with the borrow-out (uint32
+    0/1)."""
+    x, y = carrier_of(a), carrier_of(b)
+    return limbs_of(x - y), _ult(x, y).to(torch.uint32)
+
+
+def mul64_wide(a, b):
+    """Full 64x64 -> 128-bit product of (lo, hi) pairs as four uint32 words
+    (x0, x1, x2, x3)."""
+    return _words(mul_wide(carrier_of(a), carrier_of(b)))
+
+
+def mul_u32(a, b):
+    """Modular product of (lo, hi) pairs holding any u64 residues,
+    canonical (lo, hi) out."""
+    return limbs_of(mul(carrier_of(a), carrier_of(b)))
+
+
+def mul_lazy_u32(a, b):
+    """``mul_lazy`` on (lo, hi) pairs: the JAX package's lazy residue."""
+    return limbs_of(mul_lazy(carrier_of(a), carrier_of(b)))
+
+
+@contextlib.contextmanager
+def u32_ops():
+    """The JAX package's switch to its pure-u32 limb forms inside Pallas
+    kernels (Mosaic has no 64-bit integers). The port has one form of each
+    operation, the carrier's, and its kernels are CUDA: the context changes
+    nothing here and is kept so that code written for the JAX package
+    runs."""
+    yield

@@ -37,6 +37,16 @@ w_AB^(a kb) in pass 2's (K3's two diagonals). The values do not depend on
 the decomposition, so the JAX package's thresholds do not matter here.
 Lengths 0 and 1 are copies, as in JAX.
 
+The JAX package's other four-step entry points are here with its names
+and its limb-pair seam: ``four_step_ntt_traceable`` (and its carrier form
+``four_step_ntt_w64``), ``three_step_ntt_traceable``,
+``ntt_limbs_traceable``, and the scrambled family without bit-reversal
+gathers: ``four_step_dif_general`` (natural input, output in the scrambled
+layout, both matrix axes bit-reversed: K3's ``rev_out``),
+``four_step_norev_general`` (scrambled input, natural output: ``rev_in``)
+and ``four_step_ntt_scrambled``, each taking the caller's tables
+(``_four_step_diag_device``, ``_diag_device_general``, ...) as carriers.
+
 The NTT-domain convolutions (``conv_values``, ``conv_table_values``) run
 their transforms here and their pointwise products and inverses through
 K8 (``ops/poly_cuda.py``) on the card. These tensor and ``*_values``
@@ -159,7 +169,13 @@ class NttTables:
     diag2b: torch.Tensor | None = None
 
 
-def ntt_tables(n: int, inverse: bool = False, device="cuda") -> NttTables:
+def ntt_tables(n: int, inverse: bool = False, device="cuda",
+               diag=None) -> NttTables:
+    """The tables of ``ntt()`` at length n on ``device``. ``diag``, the
+    four-step diagonal w^(j1 k2) of ``four_step_diag`` (a carrier or limb
+    pair, say from ``parallel.pipeline.lde_commit_diags``), is used in
+    place of building it where the transform takes two passes; the other
+    routes have no such table and build their own."""
     log_n = _check_len(n)
     if n <= 1:  # lengths 0 and 1 are copies: no stage, no twiddle
         return NttTables(n, inverse,
@@ -183,11 +199,14 @@ def ntt_tables(n: int, inverse: bool = False, device="cuda") -> NttTables:
         return NttTables(n, inverse,
                          gf.from_u64(stage_twiddles(log_n, inverse)).to(device))
     log_n1, log_n2 = four_step_split(log_n)
+    if diag is None:
+        diag = gf.from_u64(four_step_diag(log_n, inverse))
+    diag = _check_table("diag", _as_carrier(diag), (1 << log_n2, 1 << log_n1))
     return NttTables(
         n, inverse,
         gf.from_u64(stage_twiddles(log_n2, inverse)).to(device),
         gf.from_u64(stage_twiddles(log_n1, inverse)).to(device),
-        gf.from_u64(four_step_diag(log_n, inverse)).to(device))
+        diag.to(device))
 
 
 @functools.lru_cache(maxsize=64)
@@ -259,12 +278,14 @@ def ntt(x, inverse: bool = False, *, tables: NttTables | None = None,
 
 def ntt_columns(x, out, inverse: bool = False, *,
                 tables: NttTables | None = None, diag=None, scale: int = 1,
-                plain: bool = False):
+                plain: bool = False, rev_in: bool = False,
+                rev_out: bool = False):
     """The length-t NTT along axis 1 of the (B, t, C) view ``x`` into the
     (B, t, C) view ``out`` (any strides K3 takes), times ``diag`` (a (t, C)
     or (B, t, C) view) and ``scale``, for t up to 2^(THREE_PASS_LOG_N - 1):
-    ``ntt()``'s one- and two-pass routes, and the distributed NTT's passes
-    (``parallel/dist_ntt.py``). Returns ``out``.
+    ``ntt()``'s one- and two-pass routes, the distributed NTT's passes
+    (``parallel/dist_ntt.py``) and the scrambled four-step's. Returns
+    ``out``.
 
     With one column (C = 1, the row layout) the batches' axis becomes K3's
     column axis. Up to 2^ONE_PASS_MAX_LOG_N one pass of K3; above, the
@@ -272,9 +293,19 @@ def ntt_columns(x, out, inverse: bool = False, *,
     over j2 into a buffer laid out [b, k2, j1, c], with w_t^(j1 k2) in its
     epilogue, then pass 2 over j1 writing output k2 + m2 k1, with ``diag``
     and ``scale`` in its epilogue. K3's views have three axes, so in that
-    route either C = 1 (j1 is K3's column) or B = 1 (c is)."""
+    route either C = 1 (j1 is K3's column) or B = 1 (c is).
+
+    The order modes are K3's: ``rev_in``, row r of a column holds element
+    brev(r); ``rev_out``, output k goes to row brev(k) and ``diag`` is read
+    at the row written. A bit reversal of length m1 * m2 splits over the
+    two digits (brev(j1 + m1 j2) = brev(j2) + m2 brev(j1)), so in two passes
+    both take the mode: under ``rev_in`` pass 1 reads columns brev(j1) and
+    its diagonal is w_t^(brev(c) k2) by column; under ``rev_out`` pass 1
+    writes rows brev(k2), its diagonal w_t^(j1 brev(r)) by row, and pass 2
+    writes k2 + m2 k1 to row brev(k2) m1 + brev(k1)."""
     local_pass = (ntt_cuda.ntt_local_pass_plain if plain
                   else ntt_cuda.ntt_local_pass)
+    order = {"rev_in": rev_in, "rev_out": rev_out}
     nb, t, c = x.shape
     if diag is not None:
         diag = diag.expand(x.shape)
@@ -291,32 +322,59 @@ def ntt_columns(x, out, inverse: bool = False, *,
             x, diag = x.transpose(0, 2), (None if diag is None
                                           else diag.transpose(0, 2))
         local_pass(x, tables.tw1, diag=diag, scale=scale,
-                   out=out.transpose(0, 2) if c == 1 else out)
+                   out=out.transpose(0, 2) if c == 1 else out, **order)
         return out
     if nb > 1 and c > 1:
         raise ValueError("two passes take one batch or one column")
     m2, m1 = tables.diag.shape  # w_t^(j1 k2) laid out [k2, j1]
+    d1 = (tables.diag if not (rev_in or rev_out)
+          else _order_diag(t, inverse, rev_in, x.device))
     (sb, st, sc), (ob, ot, oc) = x.stride(), out.stride()
+    # strides of (j2, j1) in x: element j1 + m1 j2 on row j1 + m1 j2, or
+    # under rev_in on brev(j2) + m2 brev(j1); and of (k1, k2) in out (and
+    # in diag): output k2 + m2 k1 on row k2 + m2 k1, or under rev_out on
+    # brev(k2) m1 + brev(k1)
+    x2, x1 = (st, m2 * st) if rev_in else (m1 * st, st)
+
+    def rows_of(stride):
+        return (stride, m1 * stride) if rev_out else (m2 * stride, stride)
+
+    o1, o2 = rows_of(ot)
     if diag is not None:
         db, dt, dc = diag.stride()
+        d1s, d2s = rows_of(dt)
     if c == 1:  # the row layout: K3 views (b, k2, j1), then (b, j1, k2)
-        y = local_pass(x.as_strided((nb, m2, m1), (sb, m1 * st, st)),
-                       tables.tw1, diag=tables.diag)
+        y = local_pass(x.as_strided((nb, m2, m1), (sb, x2, x1)),
+                       tables.tw1, diag=d1, **order)
         if diag is not None:
-            diag = diag.as_strided((nb, m1, m2), (db, m2 * dt, dt))
+            diag = diag.as_strided((nb, m1, m2), (db, d1s, d2s))
         local_pass(y.transpose(1, 2), tables.tw2, diag=diag, scale=scale,
-                   out=out.as_strided((nb, m1, m2), (ob, m2 * ot, ot)))
+                   out=out.as_strided((nb, m1, m2), (ob, o1, o2)), **order)
         return out
     # the column layout: K3 views (j1, k2, c), then (k2, j1, c)
     y = torch.empty((m2, m1, c), dtype=x.dtype, device=x.device)
-    local_pass(x.as_strided((m1, m2, c), (st, m1 * st, sc)), tables.tw1,
-               diag=tables.diag.t().unsqueeze(-1).expand(m1, m2, c),
-               out=y.transpose(0, 1))
+    local_pass(x.as_strided((m1, m2, c), (x1, x2, sc)), tables.tw1,
+               diag=d1.t().unsqueeze(-1).expand(m1, m2, c),
+               out=y.transpose(0, 1), **order)
     if diag is not None:
-        diag = diag.as_strided((m2, m1, c), (dt, m2 * dt, dc))
+        diag = diag.as_strided((m2, m1, c), (d2s, d1s, dc))
     local_pass(y, tables.tw2, diag=diag, scale=scale,
-               out=out.as_strided((m2, m1, c), (ot, m2 * ot, oc)))
+               out=out.as_strided((m2, m1, c), (o2, o1, oc)), **order)
     return out
+
+
+@functools.lru_cache(maxsize=16)
+def _order_diag(t: int, inverse: bool, rev_in: bool,
+                device: torch.device) -> torch.Tensor:
+    """Pass 1's diagonal of ``ntt_columns``' two passes under an order
+    mode: w_t^(j1 k2) with its columns (rev_in) or rows (rev_out) in
+    bit-reversed order."""
+    log_t = t.bit_length() - 1
+    log_m1, log_m2 = four_step_split(log_t)
+    d = four_step_diag(log_t, inverse)
+    d = (d[:, bit_reverse_permutation(log_m1)] if rev_in
+         else d[bit_reverse_permutation(log_m2)])
+    return gf.from_u64(np.ascontiguousarray(d)).to(device)
 
 
 def _three_pass(rows, res, tables: NttTables, local_pass, scale: int,
@@ -357,6 +415,307 @@ def ntt_limbs(x, inverse: bool = False):
 
 def intt_limbs(x):
     return ntt_limbs(x, inverse=True)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's four-step family: traceable, W64, three-step, and the
+# scrambled (DIF / no-reverse) transforms
+# ---------------------------------------------------------------------------
+# Each takes and returns the JAX limb pair (lo, hi) at the seam (the W64
+# form: the carrier, which is the JAX package's packed u64 plane), with the
+# caller's tables as carriers (or limb pairs), and runs its passes on K3
+# (``ntt_columns``) for CUDA tensors, on the twin for CPU tensors. The table
+# helpers keep their tensors per size and device, as the JAX package's
+# do: callers must not write to them.
+
+#: The JAX package's thresholds, with its values and meaning for the
+#: functions that read them: ``ntt_limbs_traceable`` takes the four-step
+#: from 2^17 when given its diagonal; the three-step is never chosen by
+#: size (None), only called. The port's own ``ntt()`` routes by
+#: ONE_PASS_MAX_LOG_N and THREE_PASS_LOG_N instead.
+FOUR_STEP_THRESHOLD_LOG2 = 17
+THREE_STEP_THRESHOLD_LOG2 = None
+
+
+@functools.lru_cache(maxsize=16)
+def _four_step_diag_host(log_n: int, inverse: bool, dif: bool = False,
+                         split: tuple[int, int] | None = None) -> np.ndarray:
+    """(n2, n1) uint64 w^(j1 k2) laid out [k2, j1] at ``split`` (default
+    ``four_step_split``); with ``dif`` row r holds k2 = brev(r), the DIF
+    pass's layout (the JAX package's ``_four_step_diag_host``)."""
+    log_n1, log_n2 = split if split is not None else four_step_split(log_n)
+    d = _pow_table(_root(1 << log_n, inverse), 1 << log_n2, 1 << log_n1)
+    return d[bit_reverse_permutation(log_n2)] if dif else d
+
+
+def _norev_diag_host(log_n: int, inverse: bool,
+                     split: tuple[int, int]) -> np.ndarray:
+    """(n1, n2) w^(j1 brev(r2)) at [j1, r2]: the no-reverse first pass's
+    diagonal, the transpose of the DIF table."""
+    return np.ascontiguousarray(
+        _four_step_diag_host(log_n, inverse, True, tuple(split)).T)
+
+
+def _scrambled_diag_host(log_n: int, inverse: bool) -> np.ndarray:
+    """``four_step_ntt_scrambled``'s diagonal: the DIF table forward, the
+    no-reverse one inverse, at the default split."""
+    if not inverse:
+        return _four_step_diag_host(log_n, False, True)
+    return _norev_diag_host(log_n, True, four_step_split(log_n))
+
+
+@functools.lru_cache(maxsize=16)
+def _four_step_diag_device(log_n: int, inverse: bool, dif: bool | None = None,
+                           device="cuda") -> torch.Tensor:
+    """``_four_step_diag_host`` at the default split as a carrier on
+    ``device``; ``dif`` None is False, the JAX package's default."""
+    return gf.from_u64(_four_step_diag_host(log_n, inverse,
+                                            bool(dif))).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _diag_device_general(log_n: int, inverse: bool, dif: bool,
+                         split: tuple[int, int], device="cuda"):
+    return gf.from_u64(_four_step_diag_host(log_n, inverse, dif,
+                                            tuple(split))).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _norev_diag_device(log_n: int, inverse: bool, split: tuple[int, int],
+                       device="cuda"):
+    return gf.from_u64(_norev_diag_host(log_n, inverse, split)).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _scrambled_diag_device(log_n: int, inverse: bool, device="cuda"):
+    return gf.from_u64(_scrambled_diag_host(log_n, inverse)).to(device)
+
+
+def scrambled_index(log_n: int) -> np.ndarray:
+    """The scrambled <-> natural permutation of the scrambled four-step (an
+    involution, int32): position r1 * n2 + r2 of the scrambled layout
+    holds natural index brev(r2) + n2 brev(r1), so natural[k] =
+    scrambled[scrambled_index[k]] and vice versa."""
+    log_n1, log_n2 = four_step_split(log_n)
+    r1 = bit_reverse_permutation(log_n1)
+    r2 = bit_reverse_permutation(log_n2)
+    return (r1[:, None] * (1 << log_n2) + r2[None, :]).reshape(-1).astype(
+        np.int32)
+
+
+def _as_carrier(x):
+    """A carrier tensor, or the JAX limb pair (lo, hi) made one."""
+    return gf.carrier_of(x) if isinstance(x, (tuple, list)) else x
+
+
+def _rows(x, log_n: int):
+    """(R, n) carrier rows of the (..., n) limb pair or carrier x, and its
+    shape."""
+    c = _as_carrier(x)
+    if c.shape[-1] != 1 << log_n:
+        raise ValueError(f"the last axis must hold 2^{log_n} elements, got "
+                         f"{c.shape[-1]}")
+    return c.reshape(-1, 1 << log_n), c.shape
+
+
+def _split_of(log_n: int, split) -> tuple[int, int]:
+    log_n1, log_n2 = split if split is not None else four_step_split(log_n)
+    if log_n1 < 0 or log_n2 < 0 or log_n1 + log_n2 != log_n:
+        raise ValueError(f"split {split} does not factor 2^{log_n}")
+    return log_n1, log_n2
+
+
+def _columns(x, out, inverse: bool, *, diag=None, scale: int = 1,
+             rev_in: bool = False, rev_out: bool = False,
+             plain: bool = False):
+    """``ntt_columns`` of the (B, t, C) view x into out, a batch at a time
+    where its two passes (t above 2^ONE_PASS_MAX_LOG_N) would take several
+    batches and several columns."""
+    nb, t, c = x.shape
+    if nb > 1 and c > 1 and t > 1 << ONE_PASS_MAX_LOG_N:
+        for b in range(nb):
+            _columns(x[b:b + 1], out[b:b + 1], inverse,
+                     diag=(diag[b:b + 1] if diag is not None
+                           and diag.dim() == 3 else diag),
+                     scale=scale, rev_in=rev_in, rev_out=rev_out, plain=plain)
+        return out
+    return ntt_columns(x, out, inverse, diag=diag, scale=scale, plain=plain,
+                       rev_in=rev_in, rev_out=rev_out)
+
+
+def _check_table(name: str, d, shape: tuple[int, int]):
+    if d is not None and tuple(d.shape) != shape:
+        raise ValueError(f"{name} must be {shape}, got {tuple(d.shape)}")
+    return d
+
+
+def _four_step(rows, split: tuple[int, int], inverse: bool, diag, *,
+               order: str = "natural", post_diag=None, scale: int = 1,
+               out=None, plain: bool = False):
+    """The four-step transform of the (R, n) carrier rows with the caller's
+    diagonal, n = n1 * n2 at ``split``; returns ``out``, an (R, A, B) view
+    (a new tensor when None).
+
+    natural: the rows as (n2, n1) [j2, j1]; pass 1 over j2 times
+    diag[k2, j1], pass 2 over j1 into (n1, n2) [k1, k2], natural order.
+    dif: the same passes under K3's rev_out: diag at [brev(k2), j1], the
+    output (n1, n2) [brev(k1), brev(k2)], ``post_diag`` (n1, n2) by
+    position: the scrambled layout. norev: the scrambled layout as
+    (n1, n2); pass 1 over its rows under rev_in times diag (n1, n2)
+    [j1, r2], pass 2 over r2 under rev_in into (n2, n1): natural order.
+    The twiddles' direction is ``inverse``; ``scale`` multiplies pass 2's
+    output (the JAX package's ``post_const``)."""
+    log_n1, log_n2 = split
+    n1, n2 = 1 << log_n1, 1 << log_n2
+    a, b = (n1, n2) if order == "norev" else (n2, n1)
+    mode = {"rev_in": order == "norev", "rev_out": order == "dif"}
+    nrows = rows.shape[0]
+    if out is None:
+        out = torch.empty((nrows, b, a), dtype=rows.dtype, device=rows.device)
+    y = torch.empty((nrows, a, b), dtype=rows.dtype, device=rows.device)
+    _columns(rows.reshape(nrows, a, b), y, inverse,
+             diag=_check_table("diag", _as_carrier(diag), (a, b)),
+             plain=plain, **mode)
+    post = _check_table("post_diag", None if post_diag is None
+                        else _as_carrier(post_diag), (b, a))
+    return _columns(y.transpose(1, 2), out, inverse, diag=post,
+                    scale=1 if scale is None else scale, plain=plain, **mode)
+
+
+def four_step_dif_general(x, log_n: int, inverse: bool, diag, split=None,
+                          post_diag=None, post_const=None, *,
+                          plain: bool = False):
+    """Natural-order (..., n) input -> the scrambled layout at ``split``
+    (flat position r1 * n2 + r2 holds natural index brev(r2) + n2 brev(r1)),
+    two K3 passes under rev_out. ``inverse`` is the twiddles' direction
+    only (no 1/n); ``diag`` is ``_diag_device_general(log_n, inverse, True,
+    split)``; ``post_diag`` ((n1, n2), by position) and ``post_const``
+    multiply the second pass's output."""
+    rows, shape = _rows(x, log_n)
+    out = _four_step(rows, _split_of(log_n, split), inverse, diag,
+                     order="dif", post_diag=post_diag, scale=post_const,
+                     plain=plain)
+    return gf.limbs_of(out.reshape(shape))
+
+
+def four_step_norev_general(x, log_n: int, inverse: bool, diag, split=None,
+                            post_const=None, *, plain: bool = False):
+    """The scrambled layout at ``split`` (``four_step_dif_general``'s) ->
+    natural order, two K3 passes under rev_in; ``diag`` is
+    ``_norev_diag_device(log_n, inverse, split)``."""
+    rows, shape = _rows(x, log_n)
+    out = _four_step(rows, _split_of(log_n, split), inverse, diag,
+                     order="norev", scale=post_const, plain=plain)
+    return gf.limbs_of(out.reshape(shape))
+
+
+def four_step_ntt_scrambled(x, log_n: int, inverse: bool, diag, *,
+                            plain: bool = False):
+    """The four-step with no bit reversal but K3's order modes: forward,
+    natural input -> scrambled output (``four_step_dif_general``); inverse,
+    scrambled input -> natural output with 1/n (``four_step_norev_general``).
+    ``diag`` is ``_scrambled_diag_device(log_n, inverse)``."""
+    if not inverse:
+        return four_step_dif_general(x, log_n, False, diag, plain=plain)
+    return four_step_norev_general(x, log_n, True, diag,
+                                   post_const=pow(1 << log_n, P - 2, P),
+                                   plain=plain)
+
+
+def _natural_four_step(x, log_n: int, inverse: bool, diag, plain: bool):
+    rows, shape = _rows(x, log_n)
+    scale = pow(1 << log_n, P - 2, P) if inverse else 1
+    out = _four_step(rows, four_step_split(log_n), inverse, diag,
+                     scale=scale, plain=plain)
+    return out.reshape(shape)
+
+
+def four_step_ntt_traceable(x, log_n: int, inverse: bool, diag, *,
+                            plain: bool = False):
+    """The natural four-step over the last axis of (..., n) limb planes,
+    the same values as ``ntt()``; ``diag`` is ``_four_step_diag_device(
+    log_n, inverse)``, pass 1's epilogue (the JAX package's default,
+    non-DIF route)."""
+    return gf.limbs_of(_natural_four_step(x, log_n, inverse, diag, plain))
+
+
+def four_step_ntt_w64(x, log_n: int, inverse: bool, diag, *,
+                      plain: bool = False):
+    """``four_step_ntt_traceable`` on a (..., n) carrier with a carrier
+    diagonal (``_four_step_diag_device``), the JAX package's packed u64
+    form."""
+    return _natural_four_step(x, log_n, inverse, diag, plain)
+
+
+def ntt_limbs_traceable(x, inverse: bool = False, four_step_diag=None, *,
+                        plain: bool = False):
+    """NTT over the last axis of limb planes (lo, hi): the four-step with
+    the caller's diagonal from 2^FOUR_STEP_THRESHOLD_LOG2 when one is given,
+    else ``ntt()``'s routes; the same values either way."""
+    n = x[0].shape[-1]
+    log_n = _check_len(n)
+    if n <= 1:
+        return x
+    if four_step_diag is not None and log_n >= FOUR_STEP_THRESHOLD_LOG2:
+        return four_step_ntt_traceable(x, log_n, inverse, four_step_diag,
+                                       plain=plain)
+    return gf.limbs_of(ntt(gf.carrier_of(x), inverse, plain=plain))
+
+
+@functools.lru_cache(maxsize=8)
+def _three_step_tables_host(log_n: int, inverse: bool):
+    """(t1, diag, row_perm) of the three-step at n = A * B * C
+    (``three_pass_split``): t1 (C, B) (w^A)^(jb kc); diag (B C, A)
+    w^(ja k2) on physical row kb + B kc for k2 = kc + C kb; row_perm[k2],
+    the physical row of k2 (the JAX package's tables)."""
+    log_a, log_b, log_c = three_pass_split(log_n)
+    a, b, c = 1 << log_a, 1 << log_b, 1 << log_c
+    root = _root(1 << log_n, inverse)
+    t1 = _pow_table(pow(root, a, P), c, b)
+    k2 = np.arange(b * c, dtype=np.int64)
+    row_perm = k2 // c + b * (k2 % c)
+    d = np.empty((b * c, a), dtype=np.uint64)
+    d[row_perm] = _pow_table(root, b * c, a)
+    return t1, d, row_perm.astype(np.int32)
+
+
+def _three_step_tables_device(log_n: int, inverse: bool, device="cuda"):
+    """``_three_step_tables_host`` with t1 and diag as carriers on
+    ``device``."""
+    t1, d, row_perm = _three_step_tables_host(log_n, inverse)
+    return gf.from_u64(t1).to(device), gf.from_u64(d).to(device), row_perm
+
+
+def three_step_ntt_traceable(x, log_n: int, inverse: bool, t1, diag,
+                             row_perm, *, plain: bool = False):
+    """The three-factor NTT over the last axis of (..., n) limb planes with
+    the tables of ``_three_step_tables_device``, in three K3 passes a row:
+    NTT_C over jc times t1[kc, jb]; NTT_B over jb in place times diag at
+    physical row kb + B kc; NTT_A over ja reading row kb + B kc for
+    k2 = kc + C kb (``row_perm``, which K3's strides realise) into natural
+    order k2 + B C k1, with 1/n for the inverse. The same values as
+    ``ntt()``."""
+    rows, shape = _rows(x, log_n)
+    log_a, log_b, log_c = three_pass_split(log_n)
+    a, b, c = 1 << log_a, 1 << log_b, 1 << log_c
+    k2 = np.arange(b * c)
+    if not np.array_equal(np.asarray(row_perm), k2 // c + b * (k2 % c)):
+        raise ValueError("row_perm must be _three_step_tables_device's")
+    t1 = _check_table("t1", _as_carrier(t1), (c, b))
+    diag = _check_table("diag", _as_carrier(diag), (b * c, a))
+    t1v = t1.as_strided((b, c, a), (1, b, 0))  # [jb, kc, ja] -> t1[kc, jb]
+    scale = pow(1 << log_n, P - 2, P) if inverse else 1
+    out = torch.empty_like(rows)
+    y = torch.empty((c, b, a), dtype=rows.dtype, device=rows.device)
+    by_jb = y.as_strided((b, c, a), (a, a * b, 1))
+    for src, dst in zip(rows, out):
+        _columns(src.as_strided((b, c, a), (a, a * b, 1)), by_jb, inverse,
+                 diag=t1v, plain=plain)
+        _columns(y, y, inverse, diag=diag.view(c, b, a), plain=plain)
+        _columns(y.as_strided((b, a, c), (a, 1, b * a)),
+                 dst.as_strided((b, a, c), (c, b * c, 1)), inverse,
+                 scale=scale, plain=plain)
+    return gf.limbs_of(out.view(shape))
 
 
 def _ntt_objects(elements, inverse: bool) -> list:

@@ -9,6 +9,12 @@ view shared by the batches, or a (B, t, C) one). The views' strides are
 what let the four-step and three-pass transforms run without a separate
 transpose (``math/ntt.py``).
 
+Two order modes serve the scrambled four-step transforms (``math/ntt.py``:
+the counterparts of the JAX package's no-reverse DIT and DIF cores):
+``rev_in`` reads row r of a column as element brev(r) of its input, and
+``rev_out`` writes output k to row brev(k), its diagonal read at that row.
+They take no second diagonal.
+
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 twin. The wrapper counts its launches in ``ntt_local_pass.launches``.
 
@@ -103,20 +109,37 @@ def _strides(d):
     return (0,) * (3 - d.dim()) + d.stride()
 
 
+def _order(diag2, rev_in: bool, rev_out: bool) -> int:
+    """K3's order mode: 0 natural, 1 rev_in, 2 rev_out."""
+    if rev_in and rev_out:
+        raise ValueError("rev_in and rev_out exclude each other")
+    if (rev_in or rev_out) and diag2 is not None:
+        raise ValueError("the order modes take no second diagonal")
+    return 1 if rev_in else 2 if rev_out else 0
+
+
 def ntt_local_pass_plain(x, tw, *, diag=None, diag2=None, scale: int = 1,
-                         out=None):
-    """Plain twin of K3: bit-reverse, radix-2 DIT stages, epilogue."""
+                         out=None, rev_in: bool = False,
+                         rev_out: bool = False):
+    """Plain twin of K3: bit-reverse (unless ``rev_in``: the input is so
+    already), radix-2 DIT stages, bit-reverse the output rows for
+    ``rev_out``, epilogue."""
+    _order(diag2, rev_in, rev_out)
     b, t, c = x.shape
     log_t = t.bit_length() - 1
     y = x.permute(0, 2, 1).reshape(b * c, t)
     rev = torch.from_numpy(bit_reverse_permutation(log_t)).to(x.device)
-    y = y[:, rev]
+    if not rev_in:
+        y = y[:, rev]
     for s in range(log_t):
         m = 1 << s
         y = y.reshape(b * c, t // (2 * m), 2, m)
         u = y[:, :, 0, :]
         v = gf.mul(y[:, :, 1, :], tw[m - 1:2 * m - 1])
         y = torch.stack([gf.add(u, v), gf.sub(u, v)], dim=2)
+    y = y.reshape(b * c, t)
+    if rev_out:
+        y = y[:, rev]
     y = y.reshape(b, c, t).permute(0, 2, 1)
     for d in (diag2, diag):
         if d is not None:
@@ -130,7 +153,7 @@ def ntt_local_pass_plain(x, tw, *, diag=None, diag2=None, scale: int = 1,
 
 
 def ntt_local_pass(x, tw, *, diag=None, diag2=None, scale: int = 1,
-                   out=None):
+                   out=None, rev_in: bool = False, rev_out: bool = False):
     """One local pass (see the module docstring); returns ``out``.
 
     x: (B, t, C) int64 view, any non-negative strides, t = 2^1..2^12.
@@ -141,13 +164,17 @@ def ntt_local_pass(x, tw, *, diag=None, diag2=None, scale: int = 1,
     out: (B, t, C) view to write; a new contiguous tensor when None. It
     shares no storage with x unless it is x itself (each block reads its
     whole tile before it writes, so in place is safe).
+    rev_in, rev_out: the order modes (see the module docstring); a
+    diagonal is then indexed by the row written.
     """
+    order = _order(diag2, rev_in, rev_out)
     if out is None:
         out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     _check(x, tw, diag, diag2, out)
     if x.device.type == "cpu":
         return ntt_local_pass_plain(x, tw, diag=diag, diag2=diag2,
-                                    scale=scale, out=out)
+                                    scale=scale, out=out, rev_in=rev_in,
+                                    rev_out=rev_out)
     if not x.is_cuda:
         raise ValueError(f"no kernel for device {x.device}")
     nb, _, ncols = x.shape
@@ -164,7 +191,7 @@ def ntt_local_pass(x, tw, *, diag=None, diag2=None, scale: int = 1,
             *x.stride(), *out.stride(), tw.data_ptr(),
             diag.data_ptr() if diag is not None else None, *_strides(diag),
             diag2.data_ptr() if diag2 is not None else None,
-            *_strides(diag2), scale % gf.P, _build.stream_of(x))
+            *_strides(diag2), scale % gf.P, order, _build.stream_of(x))
         _build.check(err, "ntt_local_pass")
     ntt_local_pass.launches += 1
     return out

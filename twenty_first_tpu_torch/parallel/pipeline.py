@@ -16,6 +16,15 @@ commits to it:
 On a CUDA tensor the NTTs run through K3, the leaf hash through K1 and the
 tree through K2; ``plain=True`` runs the plain twins instead, on any device.
 
+``trace_lde_commit_scrambled`` gives the same root by the JAX package's
+other route (its DESIGN.md section 15): the iNTT as the DIF four-step into
+the scrambled layout, with offset^j / n in its second pass; the zero
+padding as a row interleave of that layout (the extended transform's split
+is (log_n1 + log_e, log_n2), and brev_{L1+e}(r1 * 2^e) = brev_{L1}(r1)),
+which the second pass writes straight into; the no-reverse forward
+four-step back to natural order. K3's order modes (``rev_out``, ``rev_in``)
+do the bit reversals in its addressing, so no pass reorders a block.
+
 ``make_dist_lde_commit`` and ``dist_lde_commit_values`` are the variant
 over a mesh (``parallel/mesh.py``): the distributed NTT of one vector in
 its Z layout (``dist_ntt``: K3, one all-to-all), each rank's rows hashed
@@ -57,10 +66,12 @@ class TraceLdeCommit(nn.Module):
     Holds every table of the step as a buffer, on ``device`` (the card
     unless the caller asks for another): the twiddles and four-step
     diagonals of the n-point iNTT and the (expansion * n)-point NTT, the
-    coset offset's powers, and Tip5's round constants and lookup table."""
+    coset offset's powers, and Tip5's round constants and lookup table.
+    ``ntt_diags`` (``lde_commit_diags``) stand in for the four-step
+    diagonals it would build (``ntt.ntt_tables``)."""
 
     def __init__(self, w: int, n: int, expansion: int = 4,
-                 offset: int | None = None, device="cuda"):
+                 offset: int | None = None, device="cuda", ntt_diags=None):
         super().__init__()
         if not 1 <= w <= RATE:
             raise ValueError(f"trace width must be 1..{RATE}, got {w}")
@@ -69,9 +80,12 @@ class TraceLdeCommit(nn.Module):
         self.w, self.n, self.expansion = w, n, expansion
         self.big_n = n * expansion
         offset = GENERATOR if offset is None else offset
-        for name, tables in (("inv", ntt_mod.ntt_tables(n, True, device)),
+        inv_diag, fwd_diag = ntt_diags if ntt_diags is not None else (None,
+                                                                      None)
+        for name, tables in (("inv", ntt_mod.ntt_tables(n, True, device,
+                                                        inv_diag)),
                              ("fwd", ntt_mod.ntt_tables(self.big_n, False,
-                                                        device))):
+                                                        device, fwd_diag))):
             for field in ("tw1", "tw2", "diag"):
                 self.register_buffer(f"{name}_{field}",
                                      getattr(tables, field), persistent=False)
@@ -127,15 +141,99 @@ def hash_rows(evals, *, tables=None, plain: bool = False):
     return leafs[:, :DIGEST_LENGTH].contiguous()
 
 
+def lde_commit_diags(n: int, expansion: int = 4, device="cuda"):
+    """The four-step diagonals of ``trace_lde_commit`` at trace length n,
+    carriers on ``device``: (the n-point iNTT's or None, the (expansion *
+    n)-point NTT's or None), each given from 2^FOUR_STEP_THRESHOLD_LOG2, as
+    the JAX package gives them. Pass them as ``ntt_diags`` to use them in
+    place of the ones the step would build."""
+    inv_d = fwd_d = None
+    log_n = _log2_exact(n, "trace length")
+    log_big = log_n + _log2_exact(expansion, "expansion")
+    if log_n >= ntt_mod.FOUR_STEP_THRESHOLD_LOG2:
+        inv_d = ntt_mod._four_step_diag_device(log_n, True, device=device)
+    if log_big >= ntt_mod.FOUR_STEP_THRESHOLD_LOG2:
+        fwd_d = ntt_mod._four_step_diag_device(log_big, False, device=device)
+    return inv_d, fwd_d
+
+
 def trace_lde_commit(trace, expansion: int = 4, offset: int | None = None,
-                     plain: bool = False):
+                     ntt_diags=None, plain: bool = False):
     """Single-device STARK trace commitment: (W, n) carrier -> (1, 5) root.
 
-    Builds the step's tables on the trace's device for this one call; keep
-    a ``TraceLdeCommit`` to reuse them."""
+    Builds the step's tables on the trace's device for this one call, with
+    ``ntt_diags`` (``lde_commit_diags``) in place of its four-step
+    diagonals where given; keep a ``TraceLdeCommit`` to reuse them."""
     w, n = trace.shape
-    step = TraceLdeCommit(w, n, expansion, offset, device=trace.device)
+    step = TraceLdeCommit(w, n, expansion, offset, device=trace.device,
+                          ntt_diags=ntt_diags)
     return step(trace, plain=plain)
+
+
+def lde_scrambled_tables(n: int, expansion: int = 4,
+                         offset: int | None = None, device="cuda"):
+    """The tables of ``trace_lde_commit_scrambled`` at trace length n, as
+    carriers on ``device``: (the DIF iNTT's diagonal, pw_scr, the no-reverse
+    NTT's diagonal). pw_scr (n1, n2) holds offset^j / n at the scrambled
+    position of j (r1 * n2 + r2 for j = brev(r2) + n2 brev(r1)): the coset
+    scaling and the iNTT's 1/n in one epilogue."""
+    log_n = _log2_exact(n, "trace length")
+    log_e = _log2_exact(expansion, "expansion")
+    log_n1, log_n2 = ntt_mod.four_step_split(log_n)
+    n1, n2 = 1 << log_n1, 1 << log_n2
+    offset = GENERATOR if offset is None else offset
+    d1 = ntt_mod._diag_device_general(log_n, True, True, (log_n1, log_n2),
+                                      device)
+    d4 = ntt_mod._norev_diag_device(log_n + log_e, False,
+                                    (log_n1 + log_e, log_n2), device)
+    b1 = ntt_mod.bit_reverse_permutation(log_n1)
+    b2 = ntt_mod.bit_reverse_permutation(log_n2)
+    j = b2[None, :] + n2 * b1[:, None]
+    pw_scr = gfn.mul(gfn.powers(offset, n)[j],
+                     np.uint64(pow(n, gf.P - 2, gf.P)))
+    return d1, gf.from_u64(pw_scr.reshape(n1, n2)).to(device), d4
+
+
+def scrambled_leaf_digests(trace, expansion: int = 4, tables=None, *,
+                           plain: bool = False):
+    """Steps 1-4 of ``trace_lde_commit_scrambled``: the (expansion * n, 5)
+    leaf digests of the (W, n) carrier trace, the same as
+    ``TraceLdeCommit.leaf_digests``. ``tables`` from
+    ``lde_scrambled_tables`` (built on the trace's device when None)."""
+    w, n = trace.shape
+    if not 1 <= w <= RATE or trace.dtype != torch.int64:
+        raise ValueError(f"trace must be (1..{RATE}, n) int64, got "
+                         f"{tuple(trace.shape)} {trace.dtype}")
+    log_n = _log2_exact(n, "trace length")
+    log_e = _log2_exact(expansion, "expansion")
+    log_n1, log_n2 = ntt_mod.four_step_split(log_n)
+    d1, pw_scr, d4 = (tables if tables is not None else
+                      lde_scrambled_tables(n, expansion, device=trace.device))
+    # the DIF iNTT writes the scrambled coefficients into rows r1 * e of
+    # the extended transform's (n1 e, n2) scrambled layout; the other rows
+    # are its zero padding
+    padded = torch.zeros((w, 1 << log_n1, expansion, 1 << log_n2),
+                         dtype=trace.dtype, device=trace.device)
+    ntt_mod._four_step(trace.reshape(w, n), (log_n1, log_n2), True, d1,
+                       order="dif", post_diag=pw_scr, out=padded[:, :, 0],
+                       plain=plain)
+    evals = ntt_mod._four_step(padded.view(w, n * expansion),
+                               (log_n1 + log_e, log_n2), False, d4,
+                               order="norev", plain=plain)
+    return hash_rows(evals.view(w, n * expansion),
+                     tables=tip5.tip5_tables(trace.device), plain=plain)
+
+
+def trace_lde_commit_scrambled(trace, expansion: int = 4, tables=None, *,
+                               plain: bool = False):
+    """``trace_lde_commit`` (at the default offset, or the one ``tables``
+    were built for) by the scrambled route: (W, n) carrier -> (1, 5) root,
+    bit for bit the natural route's (the no-reverse pass ends in natural
+    order, so the leafs are the same)."""
+    leafs = scrambled_leaf_digests(trace, expansion, tables, plain=plain)
+    return tip5_commit.reduce_layers(
+        leafs, leafs.shape[0].bit_length() - 1,
+        tables=tip5.tip5_tables(trace.device), plain=plain)
 
 
 def lde_commit(x, plain: bool = False):

@@ -135,10 +135,11 @@ def run(specs=DEFAULT_SPECS, reps: int = 10) -> list[dict]:
     return results
 
 
-#: K3's instantiations without a second diagonal (every pass but the
-#: three-pass transform's middle one) by the log2 of the elements a thread
-#: holds (csrc/ntt.cu); the widest runs every pass of 2^4 or more
-K3_TAG = re.compile(r"ntt_local_pass_kernelILi(\d)ELb0E")
+#: K3's natural-order instantiations without a second diagonal (every pass
+#: but the three-pass transform's middle one and the scrambled transforms')
+#: by the log2 of the elements a thread holds (csrc/ntt_pass.cuh); the
+#: widest runs every pass of 2^4 or more
+K3_TAG = re.compile(r"ntt_local_pass_kernelILi(\d)ELb0ELi0E")
 
 
 def kernel_stats(log_t: int, ncols: int) -> dict:
