@@ -8,7 +8,7 @@ Run from the repository root, with no arguments:
 It builds the hand-written kernels from twenty_first_tpu_torch/csrc with
 nvcc, holds each against its plain PyTorch twin on the card (exact
 equality: this is integer field arithmetic), reproduces values pinned from
-the JAX reference, and drives eleven paths, each with every launch counter
+the JAX reference, and drives twelve paths, each with every launch counter
 set to 0 just before it and read just after:
 
 * the flagship step (W = 8 trace columns, n = 2^20, expansion 4: a
@@ -25,6 +25,14 @@ set to 0 just before it and read just after:
 * the standalone Tip5 batch path: permutation_batch at 2^16 and 2^22
   states, the T4/T5 entry points, trace, hash_varlen and
   hash_varlen_ragged (K1 and its trace mode);
+* the tensor-core Tip5 and the packed commit's entry points
+  (ops/tip5_mxu.py, ops/tip5_packed.py): K9, the permutation with its MDS
+  as u8 mma on the integer tensor cores, against its twin and K1 at 2^16
+  and 2^22 states and at 2^16 + 9; permutation on the 2^22 states' limb
+  planes, permutation_dense on their lane-dense planes,
+  permutation_values, commit_states_packed over the step's 2^22 leaf
+  states (SLICE_ROOT) and reduce_layers_packed over 2^20 digests against
+  K2's reduce_layers (K9 and K2's two launches); K1 and K9 timed in turns;
 * the polynomial batch path (math/poly_batch.py, the NTT-domain
   convolutions and gf_ext's batch inversion) at full width: the
   out-of-domain extrapolations of bench.py's shape and of the flagship
@@ -218,6 +226,13 @@ MERKLE_QUERIES = 160
 MMR_LEAFS, MMR_APPEND = 3 * (1 << 21) - 1, 1 << 16
 SMALL_TREES = (2, 1 << 10)
 SMALL_MMR = 300  # leafs: below the parallelization cutoff (512)
+# K9 and the tip5_mxu / tip5_packed entry points: the bench's batch and
+# the step's leaf count, a batch that is not a multiple of a warp's 16
+# states, and the packed reduction over a layer of 2^20 digests to its root
+MXU_STATES = (1 << 16, N * E)
+MXU_RAGGED = (1 << 16) + 9
+PACKED_DIGESTS = 1 << 20
+MXU_SEED = 14
 
 # The bound of a kernel's work: the larger of its bytes (each input read
 # once, each output written once) over the memory rate and its multiplies
@@ -243,10 +258,16 @@ MDS_PRODUCTS = 41
 POW7_PRODUCTS_PER_PERM = 5 * 12 * 2 * (IMAD_PER_SQUARE + IMAD_PER_MUL)
 MDS_PRODUCTS_PER_PERM = 5 * 2 * MDS_PRODUCTS
 PRODUCTS_PER_PERM = POW7_PRODUCTS_PER_PERM + MDS_PRODUCTS_PER_PERM
+# K9 (csrc/tip5_mma.cu) runs the MDS on the integer tensor cores instead:
+# 18 u8 mma.m16n8k32 (2 * 16 * 8 * 32 operations each) for 16 states a
+# round, over the int8 tensor-core rate; its x^7 products stay on IMAD.
+MMA_OPS_PER_WARP_ROUND = 18 * 2 * 16 * 8 * 32
+MMA_STATES_PER_WARP = 16
 #: canonical edge words K3's checks mix into their inputs
 K3_EDGES = (0, 1, P - 1, 1 << 32, (1 << 32) - 1)
 #: the device kernels of csrc/ by name; every other kernel of a step is glue
 OWN_KERNELS = ("tip5_permute_kernel", "merkle_commit_kernel",
+               "tip5_permute_mma_kernel",
                "ntt_local_pass_kernel", "coset_fold_kernel",
                "fold_reduce_kernel", "inv_segment_kernel",
                "inv_zero_rows_kernel", "gf_pointwise_kernel")
@@ -286,10 +307,12 @@ def pin_of(values) -> tuple:
             hashlib.sha256(arr.tobytes()).hexdigest())
 
 
-def bound(nbytes: int, imads: int, either: int = 0) -> dict:
+def bound(nbytes: int, imads: int, either: int = 0,
+          int8_mma_ops: int = 0) -> dict:
     """bound_ms and what sets it, for ``nbytes`` moved, ``imads`` products
-    that only the IMAD pipe does and ``either`` that the IMAD or the FP64
-    pipe may do."""
+    that only the IMAD pipe does, ``either`` that the IMAD or the FP64
+    pipe may do, and ``int8_mma_ops`` operations of u8 tensor-core
+    products (2 M N K an mma) over the int8 tensor-core rate."""
     from twenty_first_tpu_torch.probes import timing
 
     clock = timing.sm_clock_mhz()[1]
@@ -297,17 +320,28 @@ def bound(nbytes: int, imads: int, either: int = 0) -> dict:
     fp64_per_s = timing.lane_rate(timing.FP64_LANES_PER_SM, clock)
     mem_ms = nbytes / timing.MEMORY_BYTES_PER_S * 1e3
     ops_ms = max(imads / imad_per_s,
-                 (imads + either) / (imad_per_s + fp64_per_s)) * 1e3
+                 (imads + either) / (imad_per_s + fp64_per_s),
+                 int8_mma_ops / timing.INT8_TENSOR_OPS_PER_S) * 1e3
     return {"bound_ms": max(mem_ms, ops_ms),
             "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
             "bound_bytes": nbytes, "bound_imads": imads,
-            "bound_imad_or_fp64_products": either}
+            "bound_imad_or_fp64_products": either,
+            "bound_int8_mma_ops": int8_mma_ops}
 
 
 def tip5_bound(nbytes: int, perms: int) -> dict:
     """``bound`` of ``perms`` Tip5 permutations moving ``nbytes``."""
     return bound(nbytes, POW7_PRODUCTS_PER_PERM * perms,
                  MDS_PRODUCTS_PER_PERM * perms)
+
+
+def k9_bound(perms: int) -> dict:
+    """``bound`` of K9 on ``perms`` states: their bytes in and out, the x^7
+    products on IMAD, and the mma of every warp of 16 states (the last one
+    partly masked)."""
+    warps = -(-perms // MMA_STATES_PER_WARP)
+    return bound(2 * 128 * perms, POW7_PRODUCTS_PER_PERM * perms,
+                 int8_mma_ops=5 * MMA_OPS_PER_WARP_ROUND * warps)
 
 
 def run_path(counters, fn):
@@ -994,6 +1028,138 @@ def phase_tip5_batch(rng, tables) -> dict:
                       "plain_ms": trace_plain_ms,
                       **tip5_bound(8 * (16 + 96) * TRACE_STATES,
                                    TRACE_STATES)}}
+
+
+def slice_leaf_states():
+    """The flagship step's (N * E, 16) leaf states of SLICE_ROOT's trace:
+    the rows ``pipeline.hash_rows`` permutes (the W evaluations, zeros to
+    the rate, the capacity ones), made as ``TraceLdeCommit.leaf_digests``
+    makes them."""
+    from twenty_first_tpu_torch.math import ntt
+    from twenty_first_tpu_torch.parallel import pipeline
+    from twenty_first_tpu_torch.tip5.constants import RATE
+
+    step = pipeline.TraceLdeCommit(W, N, E)
+    trace = random_field(np.random.default_rng(2026), (W, N))
+    padded = torch.zeros((W, N * E), dtype=torch.int64, device="cuda")
+    ntt.ntt(trace, inverse=True, tables=step._ntt_tables("inv", N, True),
+            post=step.offset_powers, out=padded[:, :N])
+    evals = ntt.ntt(padded, tables=step._ntt_tables("fwd", N * E, False))
+    states = torch.zeros((N * E, 16), dtype=torch.int64, device="cuda")
+    states[:, :W] = evals.t()
+    states[:, RATE:] = 1
+    return states
+
+
+def k1_k9_in_turns(x, tables) -> dict:
+    """K1 and K9 on the same states, timed in turns (K1, K9, K9, K1): each
+    one's device ms (CUDA events, median of 10) and wall_ms, both
+    readings."""
+    from twenty_first_tpu_torch.ops import tip5_cuda, tip5_mxu
+
+    fns = {"k1": lambda: tip5_cuda.tip5_permute(x, *tables),
+           "k9": lambda: tip5_mxu.tip5_permute_mma(x, *tables)}
+    out = {k: {"ms": [], "wall_ms": []} for k in fns}
+    for name in ("k1", "k9", "k9", "k1"):
+        out[name]["ms"].append(cuda_ms(fns[name], 10))
+        out[name]["wall_ms"].append(wall_ms(fns[name], 10))
+    return out
+
+
+def phase_tip5_mxu(tables) -> dict:
+    """K9 and the entry points of ops/tip5_mxu.py and ops/tip5_packed.py.
+
+    K9 against its plain twin on the card and against K1, at 2^16 and
+    2^22 states and at a batch that is not a multiple of 16, inputs with
+    edge words; then the path, once, with the counters at 0:
+    ``permutation`` on the 2^22 states' limb planes, ``permutation_dense``
+    on their lane-dense planes, ``permutation_values`` on 2^16 host states,
+    ``commit_states_packed`` over the step's 2^22 leaf states (SLICE_ROOT)
+    and ``reduce_layers_packed`` over 2^20 digests to their root (K9 and
+    K2's two launches); then K1 and K9 in turns at 2^16 and 2^22."""
+    from twenty_first_tpu_torch.math import gf
+    from twenty_first_tpu_torch.ops import (tip5_commit, tip5_cuda, tip5_mxu,
+                                            tip5_packed)
+
+    rng = np.random.default_rng(MXU_SEED)
+    small_n, big_n = MXU_STATES
+    inputs = {n: edge_field(rng, (n, 16)) for n in (*MXU_STATES, MXU_RAGGED)}
+    inputs[small_n][0] = gf.from_u64(snapshot_state())[0].cuda()
+    k1_out, err = {}, 0.0
+    for n, x in inputs.items():
+        got = tip5_mxu.tip5_permute_mma(x, *tables)
+        err = max(err, require_equal(
+            f"K9 at {n} states vs its twin", got,
+            tip5_mxu.tip5_permute_mma_plain(x, *tables)))
+        k1_out[n] = tip5_cuda.tip5_permute(x, *tables)
+        require_equal(f"K9 at {n} states vs K1", got, k1_out[n])
+    require_snapshot("K9", k1_out[small_n])
+    big, small = inputs[big_n], inputs[small_n]
+    blo, bhi = gf.limbs_of(big)
+    dense_in = (tip5_mxu._interleave(blo), tip5_mxu._interleave(bhi))
+    host = gf.to_u64(small)
+    leaf_states = slice_leaf_states()
+    slo, shi = gf.limbs_of(leaf_states)
+    digests = random_field(rng, (PACKED_DIGESTS, 5))
+    layers = PACKED_DIGESTS.bit_length() - 1
+
+    def path():
+        return {"permutation": tip5_mxu.permutation(blo, bhi),
+                "dense": tip5_mxu.permutation_dense(dense_in),
+                "values": tip5_mxu.permutation_values(host),
+                "commit": tip5_packed.commit_states_packed(
+                    slo, shi, (N * E).bit_length() - 1),
+                "reduce": tip5_packed.reduce_layers_packed(
+                    gf.limbs_of(digests), layers)}
+
+    got, launches = run_path((tip5_mxu.tip5_permute_mma,
+                              tip5_cuda.merkle_level,
+                              tip5_cuda.merkle_commit), path)
+    require_launched("tip5_mxu", launches)
+    require_equal("tip5_mxu.permutation vs K1",
+                  gf.carrier_of(got["permutation"]), k1_out[big_n])
+    for plane, want in zip(got["dense"], dense_in):
+        if plane.shape != want.shape or plane.dtype != torch.uint32:
+            raise AssertionError(f"permutation_dense gave {plane.shape} "
+                                 f"{plane.dtype}")
+    require_equal("permutation_dense vs K1, de-interleaved",
+                  tip5_mxu._deinterleave(gf.carrier_of(got["dense"])),
+                  k1_out[big_n])
+    require_equal("the lane interleave round trip",
+                  tip5_mxu._deinterleave(gf.carrier_of(dense_in)), big)
+    if not np.array_equal(got["values"], gf.to_u64(k1_out[small_n])):
+        raise AssertionError("permutation_values != K1 on the host states")
+    root = gf.from_limbs(got["commit"])
+    if root.shape != (1, 5) or root[0].tolist() != SLICE_ROOT:
+        raise AssertionError(f"commit_states_packed root {root.tolist()} "
+                             f"!= SLICE_ROOT")
+    require_equal("reduce_layers_packed vs K2's reduce_layers",
+                  gf.carrier_of(got["reduce"]),
+                  tip5_commit.reduce_layers(digests, layers))
+    turns = {n: k1_k9_in_turns(inputs[n], tables) for n in MXU_STATES}
+    plain_ms = cuda_ms(lambda: tip5_mxu.tip5_permute_mma_plain(big, *tables),
+                       3)
+    block, blocks = tip5_mxu.occupancy()
+    by_size = {n: {"ms": statistics.mean(t["k9"]["ms"]),
+                   "wall_ms": statistics.mean(t["k9"]["wall_ms"]),
+                   "k1_ms": statistics.mean(t["k1"]["ms"]),
+                   "k1_wall_ms": statistics.mean(t["k1"]["wall_ms"]),
+                   "turns": t, "bound": k9_bound(n),
+                   "k1_bound": tip5_bound(2 * 128 * n, n)}
+               for n, t in turns.items()}
+    emit("tip5_mxu", launches=launches, states=list(MXU_STATES),
+         ragged=MXU_RAGGED, packed_digests=PACKED_DIGESTS,
+         commit_root=SLICE_ROOT, k9_over_k1={
+             n: v["ms"] / v["k1_ms"] for n, v in by_size.items()},
+         by_size=by_size, plain_ms=plain_ms,
+         resident_warps_per_sm=blocks * block // 32)
+    return {"launches": launches, "max_abs_err": err,
+            "ms": by_size[big_n]["ms"], "wall_ms": by_size[big_n]["wall_ms"],
+            "plain_ms": plain_ms, **k9_bound(big_n),
+            "by_size": {n: {k: v[k] for k in ("ms", "wall_ms", "k1_ms",
+                                               "k1_wall_ms")}
+                        for n, v in by_size.items()},
+            "resident_warps_per_sm": blocks * block // 32}
 
 
 #: the polynomial phase's inputs: np.random.default_rng(POLY_SEED)
@@ -2674,6 +2840,7 @@ def main() -> None:
     phase_entry()
     merkle = phase_merkle_objects(counters, slice_root, k2["tail_ms"])
     batch = phase_tip5_batch(rng, tables)
+    mxu = phase_tip5_mxu(tables)
     from twenty_first_tpu_torch.ops import poly_cuda
 
     poly_counters = (ntt_cuda.ntt_local_pass, poly_cuda.coset_extrapolate_fold,
@@ -2690,6 +2857,7 @@ def main() -> None:
     rate = probe_alu["instructions_per_s"]
     stats = phase_tip5_counts(rate)
     k1.update(tip5_probe.counts(stats, "tip5_permute", N * E, rate))
+    mxu.update(tip5_probe.counts(stats, "tip5_permute_mma", N * E, rate))
     log_n1, log_n2 = ntt.four_step_split((N * E).bit_length() - 1)
     k3_stats = pass_probe.kernel_stats(log_n2, 1 << log_n1)
     emit("k3_sass", **k3_stats)
@@ -2728,7 +2896,8 @@ def main() -> None:
         {"name": "merkle_commit", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/tip5.cu",
          "replaces": f"{pallas}:262 (T2)",
-         "launches": sum(path[k] for path in (launches, merkle, dist, scr)
+         "launches": sum(path[k] for path in (launches, merkle, dist, scr,
+                                              mxu["launches"])
                          for k in ("merkle_level", "merkle_commit"))
                      + host["launches"]["merkle_level"],
          "launches_by_path": {
@@ -2736,10 +2905,20 @@ def main() -> None:
                 for path, counts in (("slice", launches),
                                      ("merkle_objects", merkle),
                                      ("distributed", dist),
-                                     ("scrambled", scr))},
+                                     ("scrambled", scr),
+                                     ("tip5_mxu", mxu["launches"]))},
              "host_layers": {"merkle_level": host["launches"]["merkle_level"]}},
          "merkle_sweep_host_up_to": host["sweep"]["host_up_to"],
          **k2, **NO_LIBRARY},
+        {"name": "tip5_permute_mma", "route": "cuda",
+         "source": "twenty_first_tpu_torch/csrc/tip5_mma.cu",
+         "replaces": "twenty_first_tpu/ops/tip5_mxu.py:96 (_mds_mxu), :143 "
+                     "(permutation_dense); plain jnp on the MXU, no Pallas "
+                     "kernel",
+         "launches": mxu["launches"]["tip5_permute_mma"],
+         "launches_by_path": {
+             "tip5_mxu": mxu["launches"]["tip5_permute_mma"]},
+         **{k: v for k, v in mxu.items() if k != "launches"}, **NO_LIBRARY},
         {"name": "ntt_local_pass", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/ntt.cu",
          "replaces": "twenty_first_tpu/ops/ntt_pallas.py:47 (T3); "

@@ -20,7 +20,8 @@ from twenty_first_tpu.parallel import dist_merkle
 from twenty_first_tpu.tip5 import permutation as jperm
 from twenty_first_tpu_torch.math import gf, ntt
 from twenty_first_tpu_torch.ops import (ntt_cuda, poly_cuda, probe_cuda,
-                                        tip5_batch, tip5_commit, tip5_cuda)
+                                        tip5_batch, tip5_commit, tip5_cuda,
+                                        tip5_mxu, tip5_packed)
 from twenty_first_tpu_torch.parallel import pipeline
 from twenty_first_tpu_torch.probes import pass_probe
 from twenty_first_tpu_torch.tip5 import permutation as tperm
@@ -177,6 +178,53 @@ def test_pipeline_root_matches_pinned_jax_root(cuda):
                                               dtype=np.uint64)
     got = pipeline.trace_lde_commit(gf.from_u64(trace).to(cuda))
     assert gf.to_u64(got).tolist() == [chip_smoke.PINNED_ROOTS[64]]
+
+
+@pytest.mark.parametrize("rows", [1, 16, 1000, 1 << 16])
+def test_k9_matches_its_twin_and_k1(cuda, rows):
+    """K9 (the MDS on the integer tensor cores) against its plain twin on
+    the card and K1, at a ragged tail (1000 = 62 warps of 16 and 8) too,
+    with edge words in the input."""
+    states = _rand((rows, 16))
+    states.reshape(-1)[::7] = np.resize(np.array(
+        [0, 1, P - 1, P - 2, (1 << 32) - 1], dtype=np.uint64),
+        states.reshape(-1)[::7].shape)
+    x = gf.from_u64(states).to(cuda)
+    tables = tip5_tables(cuda)
+    before = tip5_mxu.tip5_permute_mma.launches
+    got = tip5_mxu.tip5_permute_mma(x, *tables)
+    assert tip5_mxu.tip5_permute_mma.launches == before + 1
+    assert torch.equal(got, tip5_mxu.tip5_permute_mma_plain(x, *tables))
+    assert torch.equal(got, tip5_cuda.tip5_permute(x, *tables))
+
+
+def test_k9_entry_points_match_jax(cuda):
+    states = _rand((1024, 16))
+    want = jperm.permutation_values(states)
+    np.testing.assert_array_equal(tip5_mxu.permutation_values(states), want)
+    lo, hi = gf.to_limbs(states, cuda)
+    got = tip5_mxu.permutation(lo, hi)
+    assert got[0].is_cuda
+    np.testing.assert_array_equal(gf.from_limbs(got), want)
+    dense = tip5_mxu.permutation_dense(
+        (tip5_mxu._interleave(lo), tip5_mxu._interleave(hi)))
+    np.testing.assert_array_equal(
+        gf.from_limbs(tuple(tip5_mxu._deinterleave(v) for v in dense)), want)
+
+
+@pytest.mark.parametrize("rows,layers", [(1 << 12, 12), (3 << 10, 10)])
+def test_packed_commit_matches_jax(cuda, rows, layers):
+    """tip5_packed's entry points on the card (K2's plan) against JAX's
+    XLA reduction."""
+    dig = _rand((rows, 5))
+    got = tip5_packed.reduce_layers_packed(gf.to_limbs(dig, cuda), layers)
+    want = dist_merkle._reduce_layers(jgf.to_limbs(dig), layers)
+    np.testing.assert_array_equal(gf.from_limbs(got), jgf.from_limbs(want))
+    states = _rand((rows, 16))
+    got = tip5_packed.commit_states_packed(*gf.to_limbs(states, cuda), layers)
+    leafs = jperm.permutation_values(states)[:, :5]
+    want = dist_merkle._reduce_layers(jgf.to_limbs(leafs), layers)
+    np.testing.assert_array_equal(gf.from_limbs(got), jgf.from_limbs(want))
 
 
 def test_k1_trace_mode_matches_jax(cuda):

@@ -235,6 +235,46 @@ def test_ptxas_report_and_resident_warps(monkeypatch):
     assert "resident_warps_per_sm" not in other["tip5_permute"]
 
 
+def test_k9_counts_are_per_permutation_with_imma_apart(monkeypatch):
+    """K9's warp permutes 16 states: its round loop's counts are scaled by
+    32 / 16 to a thread's instructions per permutation (K1's unit), and its
+    IMMA instructions are counted apart (none in K1)."""
+    sass = """
+.L_x_0:
+        /*0000*/                   IMMA.16832.U8.U8 R8, R4, R2, RZ ;
+        /*0010*/                   IMMA.16832.U8.U8 R12, R4, R3, RZ ;
+        /*0020*/                   IMAD.WIDE.U32 R2, R4, R5, RZ ;
+        /*0030*/                   PRMT R6, R6, 0x5140, R7 ;
+        /*0040*/              @P1 BRA `(.L_x_0) ;
+        /*0050*/                   EXIT ;
+"""
+    from twenty_first_tpu_torch import _build
+    from twenty_first_tpu_torch.ops import tip5_cuda, tip5_mxu
+
+    k1 = "_Z19tip5_permute_kernelILi0EEvPKmPmlS1_PKh"
+    k9 = "_ZN12_GLOBAL__N_123tip5_permute_mma_kernelEPKmPmlS1_PKh"
+    log = (_PTXAS_LOG.replace("_Z1kv", k1).replace("_Z1jv", k9))
+    monkeypatch.setattr(_build, "sass", lambda library=None: {
+        k1: sass.replace("IMMA.16832.U8.U8", "DFMA").splitlines(),
+        k9: sass.splitlines()})
+    monkeypatch.setattr(_build, "build_log", lambda library=None: log)
+    monkeypatch.setattr(tip5_cuda, "occupancy",
+                        lambda name, device=None, threads=256: (threads, 3))
+    monkeypatch.setattr(tip5_mxu, "occupancy", lambda device=None: (128, 8))
+    stats = tip5_probe.kernel_stats()
+    assert set(stats) == {"tip5_permute", "tip5_permute_mma"}
+    mma = stats["tip5_permute_mma"]
+    assert mma["states_per_warp"] == 16 and mma["registers"] == 28
+    assert mma["sass_per_perm"] == 5 * 5 * 2
+    assert mma["imad_per_perm"] == 5 * 2 and mma["imma_per_perm"] == 20
+    assert mma["resident_warps_per_sm"] == 32
+    assert stats["tip5_permute"]["sass_per_perm"] == 25
+    assert stats["tip5_permute"]["imma_per_perm"] == 0
+    got = tip5_probe.counts(stats, "tip5_permute_mma", 16, 1e6)
+    assert got["imma_per_perm"] == 20
+    assert got["issue_bound_ms"] == pytest.approx(50 * 16 / 1e6 * 1e3)
+
+
 def test_issue_bound_and_counts():
     stats = {"a": {"sass_per_perm": 100, "registers": 40},
              "b": {"sass_per_perm": 300},

@@ -7,9 +7,11 @@ A module "defines" the names it assigns, its functions and classes, and,
 in a package ``__init__`` or the prelude (the re-export modules), the names
 it imports from the package itself. ``NOT_PORTED`` (ROADMAP A.8) lists the
 names left out by decision: none, since the port has the JAX package's
-whole public surface. The JAX package's ``ops/*_pallas.py``,
-``ops/tip5_mxu.py`` and ``ops/tip5_packed.py`` are not compared: the port's
-``ops/`` counterparts of its kernels have their own names."""
+whole public surface. The JAX package's ``ops/*_pallas.py`` are not
+compared: the port's counterparts of those kernels (``ops/tip5_cuda.py``,
+``ops/tip5_batch.py``, ``ops/ntt_cuda.py``, ``ops/probe_cuda.py``) have
+their own names. ``ops/tip5_mxu.py`` and ``ops/tip5_packed.py`` are
+compared like every other module."""
 
 import ast
 import importlib
@@ -46,8 +48,7 @@ SIGNATURE_EXCEPTIONS = {
 #: ROADMAP A.8: not ported, by decision; None is the whole module. Empty:
 #: kept so that a name left out again must be listed here with its reason
 NOT_PORTED: dict = {}
-NOT_COMPARED = ("ops.tip5_pallas", "ops.ntt_pallas", "ops.tip5_mxu",
-                "ops.tip5_packed")
+NOT_COMPARED = ("ops.tip5_pallas", "ops.ntt_pallas")
 MODULES = sorted(
     m.name[len("twenty_first_tpu."):]
     for m in pkgutil.walk_packages(twenty_first_tpu.__path__,

@@ -40,6 +40,10 @@ _SIGNATURES = {
     "tf_merkle_commit": (_VP, _VP, _LL, _I, _I, _I, _VP, _VP, _VP),
     # kernel, threads, out block size, out resident blocks per SM
     "tf_tip5_occupancy": (_I, _I, _PI, _PI),
+    # in, out, rows, rc, lut, stream (K9, csrc/tip5_mma.cu)
+    "tf_tip5_permute_mma": (_VP, _VP, _LL, _VP, _VP, _VP),
+    # out block size, out resident blocks per SM (K9)
+    "tf_tip5_mma_occupancy": (_PI, _PI),
     # in, out, log_t, log_tc, ncols, nbatch, in strides (b, e, c),
     # out strides (b, e, c), tw, diag, diag strides (b, e, c), diag2,
     # diag2 strides (b, e, c), scale, order (0 natural, 1 rev_in,

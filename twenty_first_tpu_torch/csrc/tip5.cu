@@ -44,17 +44,12 @@
 // launch, a block pairing neighbours through shared memory.
 // ops/tip5_commit.py plans the launches from the row count and the
 // resident thread count.
-#include <cuda_runtime.h>
-
-#include "goldilocks.cuh"
+#include "tip5_body.cuh"
 
 namespace {
 
-constexpr int kState = 16;
-constexpr int kRounds = 5;
 constexpr int kRate = 10;
 constexpr int kDigest = 5;
-constexpr int kSbox = 4;          // words through the byte lookup
 constexpr int kMaxThreads = 256;  // the fused tail's largest block
 constexpr int kRowThreads = 128;  // K1 and the level kernel
 
@@ -66,95 +61,10 @@ __device__ __forceinline__ double mds_col(int k) {
   return col[k & 15];
 }
 
-// the 32-bit halves and the lazy product, shared with K3 (goldilocks.cuh)
-using gl::hi32;
-using gl::join;
-using gl::lo32;
-using gl::mul_red;
-
-__device__ __forceinline__ uint64_t pow7(uint64_t x) {
-  const uint64_t x3 = mul_red(mul_red(x, x), x);
-  return mul_red(mul_red(x3, x3), x);
-}
-
-// x * 2^64 mod p, canonical, for any u64 x = x1 * 2^32 + x0: with
-// 2^64 = 2^32 - 1 and 2^96 = -1 it is x0 * (2^32 - 1) - x1, and
-// x0 * (2^32 - 1) < p, so adding p on a borrow makes it canonical.
-__device__ __forceinline__ uint64_t to_montgomery(uint64_t x) {
-  uint32_t r0, r1;
-  asm("{\n\t.reg .u32 a0, a1, b;\n\t"
-      "sub.cc.u32 a0, 0, %2;\n\t"  // a = x0 * 2^32 - x0
-      "subc.u32 a1, %2, 0;\n\t"
-      "sub.cc.u32 %0, a0, %3;\n\t"  // a - x1
-      "subc.cc.u32 %1, a1, 0;\n\t"
-      "subc.u32 b, 0, 0;\n\t"  // + p = - (2^32 - 1) mod 2^64 on a borrow
-      "sub.cc.u32 %0, %0, b;\n\t"
-      "subc.u32 %1, %1, 0;\n\t}"
-      : "=r"(r0), "=r"(r1)
-      : "r"(lo32(x)), "r"(hi32(x)));
-  return join(r0, r1);
-}
-
-// x * 2^-64 mod p for any u64 x: one Montgomery reduction of (x, 0), the
-// Tip5 reference's montyred with a zero high word (-p^-1 = -(1 + 2^32)
-// mod 2^64): b = a - (a >> 32) - carry with a = x + (x << 32) is never
-// above p - 1, and the value is p - b (p itself when b = 0: a lazy
-// residue, which the MDS takes).
-__device__ __forceinline__ uint64_t from_montgomery(uint64_t x) {
-  uint32_t r0, r1;
-  asm("{\n\t.reg .u32 a1, e, b0, b1;\n\t"
-      "add.cc.u32 a1, %3, %2;\n\t"  // a = (x1 + x0) * 2^32 + x0
-      "addc.u32 e, 0, 0;\n\t"
-      "sub.cc.u32 b0, %2, a1;\n\t"  // b = a - a1 - e
-      "subc.u32 b1, a1, 0;\n\t"
-      "sub.cc.u32 b0, b0, e;\n\t"
-      "subc.u32 b1, b1, 0;\n\t"
-      "sub.cc.u32 %0, 1, b0;\n\t"  // p - b
-      "subc.u32 %1, 0xFFFFFFFF, b1;\n\t}"
-      : "=r"(r0), "=r"(r1)
-      : "r"(lo32(x)), "r"(hi32(x)));
-  return join(r0, r1);
-}
-
-// The byte lookup on the canonical Montgomery form of x.
-__device__ __forceinline__ uint64_t sbox_lookup(uint64_t x,
-                                                const uint8_t* lut) {
-  const uint64_t m = to_montgomery(x);
-  uint32_t o0 = 0, o1 = 0;
-#pragma unroll
-  for (int k = 0; k < 32; k += 8) {
-    o0 |= static_cast<uint32_t>(lut[(lo32(m) >> k) & 0xFF]) << k;
-    o1 |= static_cast<uint32_t>(lut[(hi32(m) >> k) & 0xFF]) << k;
-  }
-  return from_montgomery(join(o0, o1));
-}
-
 // An exact double below 2^52 as an integer: the low 52 bits of 2^52 + d.
 __device__ __forceinline__ uint64_t exact_u64(double d) {
   return static_cast<uint64_t>(__double_as_longlong(d + 4503599627370496.0)) &
          ((1ull << 52) - 1);
-}
-
-// acc_lo + acc_hi * 2^32 (both below 2^52) as a lazy residue: it is
-// lo64 + q * 2^64 with q < 2^21 and 2^64 = 2^32 - 1, so
-// lo64 + q * 2^32 - q, plus 2^32 - 1 if that sum wraps.
-__device__ __forceinline__ uint64_t combine(uint64_t acc_lo, uint64_t acc_hi) {
-  uint32_t r0, r1;
-  asm("{\n\t.reg .u32 q, m0, m1, b;\n\t"
-      "add.cc.u32 %1, %3, %4;\n\t"  // lo64 = acc_lo + (acc_hi << 32)
-      "addc.u32 q, %5, 0;\n\t"      // q = (acc_hi >> 32) + carry
-      "sub.cc.u32 m0, 0, q;\n\t"    // m = q * 2^32 - q
-      "subc.u32 m1, q, 0;\n\t"
-      "add.cc.u32 %0, %2, m0;\n\t"  // lo64 + m
-      "addc.cc.u32 %1, %1, m1;\n\t"
-      "addc.u32 b, 0, 0;\n\t"
-      "neg.s32 b, b;\n\t"
-      "add.cc.u32 %0, %0, b;\n\t"
-      "addc.u32 %1, %1, 0;\n\t}"
-      : "=r"(r0), "=r"(r1)
-      : "r"(lo32(acc_lo)), "r"(hi32(acc_lo)), "r"(lo32(acc_hi)),
-        "r"(hi32(acc_hi)));
-  return join(r0, r1);
 }
 
 // s <- MDS(s) + rc for lazy words s: out[i] = rc[i] + sum_j col[(i - j)
@@ -199,8 +109,7 @@ __device__ __forceinline__ void permute(uint64_t s[kState], const double2* rc,
     mds_add_rc(s, rc + r * kState);
     after_round(r, s);
   }
-#pragma unroll
-  for (int i = 0; i < kState; ++i) s[i] = gl::canon(s[i]);
+  canon_words<kState>(s);
 }
 
 __device__ __forceinline__ void permute(uint64_t s[kState], const double2* rc,
@@ -214,10 +123,9 @@ __device__ __forceinline__ void permute(uint64_t s[kState], const double2* rc,
 __device__ __forceinline__ void load_tables(double2* rc, uint8_t* lut,
                                             const uint64_t* rc_g,
                                             const uint8_t* lut_g) {
-  for (int i = threadIdx.x; i < kRounds * kState; i += blockDim.x) {
-    rc[i] = make_double2(lo32(rc_g[i]), hi32(rc_g[i]));
-  }
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) lut[i] = lut_g[i];
+  load_tables(rc, lut, rc_g, lut_g, [](uint64_t c) {
+    return make_double2(lo32(c), hi32(c));
+  });
 }
 
 // n words from src to s in 16-byte loads (src 16-byte aligned, n even)

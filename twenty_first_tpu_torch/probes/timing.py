@@ -24,6 +24,9 @@ FP64_LANES_PER_SM = 64
 #: an SM's four schedulers each issue one warp instruction (32 lanes) per
 #: clock, whatever its pipe: the ceiling of all instructions together
 DISPATCH_LANES_PER_SM = 4 * 32
+#: the H100's dense int8 tensor-core rate, operations (2 per multiply-add)
+#: per second (NVIDIA's data sheet, SXM part, at its 700 W limit)
+INT8_TENSOR_OPS_PER_S = 1.979e15
 
 
 def require_card() -> str:

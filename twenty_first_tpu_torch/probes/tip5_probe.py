@@ -1,6 +1,7 @@
 """What the Tip5 kernels issue per permutation and how many warps of each
-the card holds: K1 (``tip5_permute``), its trace mode and K2 (the Merkle
-tree's two kernels: the full-width level and the fused tail).
+the card holds: K1 (``tip5_permute``), its trace mode, K2 (the Merkle
+tree's two kernels: the full-width level and the fused tail) and K9
+(``tip5_permute_mma``, the MDS on the integer tensor cores).
 
 For each kernel it reads, from the build:
 
@@ -11,7 +12,10 @@ For each kernel it reads, from the build:
 * SASS instructions per permutation: the round loop's body in
   ``cuobjdump -sass`` (the permutation keeps one round per loop iteration)
   times five, and how many of them are IMAD-family, counted by
-  ``alu_probe.sass_per_perm``.
+  ``alu_probe.sass_per_perm``. K9's warp hashes 16 states, not 32, so its
+  counts are scaled by 32 / 16 to instructions a thread issues per
+  permutation, K1's unit; its IMMA instructions (the tensor-core
+  products) are counted apart.
 
 With a card it also times the kernels at the main path's shapes (device
 time, ``timing.cuda_ms``) and sets each beside its issue-bound time:
@@ -46,12 +50,13 @@ from . import alu_probe
 from .timing import cuda_ms, require_card, sm_clock_mhz
 
 #: the kernels by a regular expression on their mangled names, with the
-#: block size of their launch
+#: block size of their launch and the states a warp permutes
 KERNELS = {
-    "tip5_permute": (r"tip5_permute_kernelIL[bi]0E", 128),
-    "tip5_trace": (r"tip5_permute_kernelIL[bi]1E", 128),
-    "merkle_level": (r"tip5_permute_kernelILi2E", 128),
-    "merkle_commit": (r"merkle_commit_kernel", 256),
+    "tip5_permute": (r"tip5_permute_kernelIL[bi]0E", 128, 32),
+    "tip5_trace": (r"tip5_permute_kernelIL[bi]1E", 128, 32),
+    "merkle_level": (r"tip5_permute_kernelILi2E", 128, 32),
+    "merkle_commit": (r"merkle_commit_kernel", 256, 32),
+    "tip5_permute_mma": (r"tip5_permute_mma_kernel", 128, 16),
 }
 #: the main path's leaf rows (W = 8, n = 2^20, expansion 4)
 LEAF_ROWS = 1 << 22
@@ -93,19 +98,33 @@ def kernel_stats(library: Path | None = None) -> dict[str, dict]:
     sass = _build.sass(library)  # builds this build first
     report = ptxas_report(_build.build_log(library))
     stats = {}
-    for name, (tag, threads) in KERNELS.items():
+    for name, (tag, threads, warp_states) in KERNELS.items():
         mangled = next((k for k in report if re.search(tag, k)), None)
         if mangled is None:
             continue
         res = report[mangled]
-        stats[name] = {"threads": threads, **res,
-                       **alu_probe.sass_per_perm(sass, tag, NUM_ROUNDS)}
+        st = alu_probe.sass_per_perm(sass, tag, NUM_ROUNDS)
+        if isinstance(st.get("sass_per_perm"), int):
+            scale = 32 // warp_states  # a thread's share of a permutation
+            imma = sum(n for op, n in st["round_opcodes"].items()
+                       if op.startswith("IMMA"))
+            st.update(sass_per_perm=st["sass_per_perm"] * scale,
+                      imad_per_perm=st["imad_per_perm"] * scale,
+                      imma_per_perm=imma * NUM_ROUNDS * scale)
+        stats[name] = {"threads": threads, "states_per_warp": warp_states,
+                       **res, **st}
         if library is None:
-            from ..ops import tip5_cuda
-
-            block, blocks = tip5_cuda.occupancy(name, threads=threads)
+            block, blocks = _occupancy(name, threads)
             stats[name]["resident_warps_per_sm"] = blocks * block // 32
     return stats
+
+
+def _occupancy(name: str, threads: int) -> tuple[int, int]:
+    from ..ops import tip5_cuda, tip5_mxu
+
+    if name == "tip5_permute_mma":
+        return tip5_mxu.occupancy()
+    return tip5_cuda.occupancy(name, threads=threads)
 
 
 def issue_rate() -> float:
@@ -135,8 +154,8 @@ def issue_bound_ms(stats: dict, perms: dict[str, int], rate) -> float | str:
 def counts(stats: dict, name: str, perms: int, rate) -> dict:
     """One kernel's SASS per permutation, registers, spills and resident
     warps, and its issue-bound ms for ``perms`` permutations."""
-    keys = ("sass_per_perm", "imad_per_perm", "registers", "spill_bytes",
-            "resident_warps_per_sm")
+    keys = ("sass_per_perm", "imad_per_perm", "imma_per_perm", "registers",
+            "spill_bytes", "resident_warps_per_sm")
     st = stats.get(name, {})
     return {**{k: st.get(k, "not measured") for k in keys},
             "issue_bound_ms": issue_bound_ms(stats, {name: perms}, rate)}
@@ -188,10 +207,10 @@ def tree_summary(launches: list[dict]) -> dict:
 
 
 def measure(stats: dict) -> dict:
-    """Device times of K1, the trace mode and K2 at the main path's shapes,
-    each beside its issue-bound time."""
+    """Device times of K1, K9, the trace mode and K2 at the main path's
+    shapes, each beside its issue-bound time."""
     from ..math import gf
-    from ..ops import tip5_commit, tip5_cuda
+    from ..ops import tip5_commit, tip5_cuda, tip5_mxu
     from ..tip5.permutation import tip5_tables
 
     tables = tip5_tables()
@@ -208,6 +227,8 @@ def measure(stats: dict) -> dict:
     out = {"issue_rate_t_per_s": rate / 1e12}
     for name, ms, perms in (
             ("tip5_permute", cuda_ms(lambda: tip5_cuda.tip5_permute(
+                states, *tables), 10), LEAF_ROWS),
+            ("tip5_permute_mma", cuda_ms(lambda: tip5_mxu.tip5_permute_mma(
                 states, *tables), 10), LEAF_ROWS),
             ("tip5_trace", cuda_ms(lambda: tip5_cuda.tip5_trace(
                 trace_in, *tables), 10), TRACE_ROWS)):
