@@ -227,10 +227,12 @@ MMR_LEAFS, MMR_APPEND = 3 * (1 << 21) - 1, 1 << 16
 SMALL_TREES = (2, 1 << 10)
 SMALL_MMR = 300  # leafs: below the parallelization cutoff (512)
 # K9 and the tip5_mxu / tip5_packed entry points: the bench's batch and
-# the step's leaf count, a batch that is not a multiple of a warp's 16
-# states, and the packed reduction over a layer of 2^20 digests to its root
+# the step's leaf count, batches at the edges of a K9 warp's two tiles of
+# 16 states, and the packed reduction over a layer of 2^20 digests to its
+# root
 MXU_STATES = (1 << 16, N * E)
 MXU_RAGGED = (1 << 16) + 9
+MXU_EDGES = (1, 15, 16, 17, 31, 32, 33, 1000)
 PACKED_DIGESTS = 1 << 20
 MXU_SEED = 14
 
@@ -259,10 +261,11 @@ POW7_PRODUCTS_PER_PERM = 5 * 12 * 2 * (IMAD_PER_SQUARE + IMAD_PER_MUL)
 MDS_PRODUCTS_PER_PERM = 5 * 2 * MDS_PRODUCTS
 PRODUCTS_PER_PERM = POW7_PRODUCTS_PER_PERM + MDS_PRODUCTS_PER_PERM
 # K9 (csrc/tip5_mma.cu) runs the MDS on the integer tensor cores instead:
-# 18 u8 mma.m16n8k32 (2 * 16 * 8 * 32 operations each) for 16 states a
-# round, over the int8 tensor-core rate; its x^7 products stay on IMAD.
-MMA_OPS_PER_WARP_ROUND = 18 * 2 * 16 * 8 * 32
-MMA_STATES_PER_WARP = 16
+# 8 u8 mma.m16n8k32 and 16 mma.m16n8k16 (2 * 16 * 8 * K operations each)
+# for each tile of 16 states a round, two tiles a warp, over the int8
+# tensor-core rate; its x^7 products stay on IMAD.
+MMA_OPS_PER_WARP_ROUND = 2 * (8 * 32 + 16 * 16) * 2 * 16 * 8
+MMA_STATES_PER_WARP = 32
 #: canonical edge words K3's checks mix into their inputs
 K3_EDGES = (0, 1, P - 1, 1 << 32, (1 << 32) - 1)
 #: the device kernels of csrc/ by name; every other kernel of a step is glue
@@ -337,7 +340,7 @@ def tip5_bound(nbytes: int, perms: int) -> dict:
 
 def k9_bound(perms: int) -> dict:
     """``bound`` of K9 on ``perms`` states: their bytes in and out, the x^7
-    products on IMAD, and the mma of every warp of 16 states (the last one
+    products on IMAD, and the mma of every warp of 32 states (the last one
     partly masked)."""
     warps = -(-perms // MMA_STATES_PER_WARP)
     return bound(2 * 128 * perms, POW7_PRODUCTS_PER_PERM * perms,
@@ -1066,12 +1069,14 @@ def k1_k9_in_turns(x, tables) -> dict:
     return out
 
 
-def phase_tip5_mxu(tables) -> dict:
+def phase_tip5_mxu(tables, stats) -> dict:
     """K9 and the entry points of ops/tip5_mxu.py and ops/tip5_packed.py.
 
     K9 against its plain twin on the card and against K1, at 2^16 and
-    2^22 states and at a batch that is not a multiple of 16, inputs with
-    edge words; then the path, once, with the counters at 0:
+    2^22 states, at a batch that is not a multiple of 32 and at the warp
+    tile's edges, inputs with edge words; its SASS a permutation by class
+    beside K1's (``stats``, ``tip5_probe.kernel_stats``); then the path,
+    once, with the counters at 0:
     ``permutation`` on the 2^22 states' limb planes, ``permutation_dense``
     on their lane-dense planes, ``permutation_values`` on 2^16 host states,
     ``commit_states_packed`` over the step's 2^22 leaf states (SLICE_ROOT)
@@ -1080,10 +1085,12 @@ def phase_tip5_mxu(tables) -> dict:
     from twenty_first_tpu_torch.math import gf
     from twenty_first_tpu_torch.ops import (tip5_commit, tip5_cuda, tip5_mxu,
                                             tip5_packed)
+    from twenty_first_tpu_torch.probes import tip5_probe
 
     rng = np.random.default_rng(MXU_SEED)
     small_n, big_n = MXU_STATES
-    inputs = {n: edge_field(rng, (n, 16)) for n in (*MXU_STATES, MXU_RAGGED)}
+    inputs = {n: edge_field(rng, (n, 16))
+              for n in (*MXU_STATES, MXU_RAGGED, *MXU_EDGES)}
     inputs[small_n][0] = gf.from_u64(snapshot_state())[0].cuda()
     k1_out, err = {}, 0.0
     for n, x in inputs.items():
@@ -1147,8 +1154,13 @@ def phase_tip5_mxu(tables) -> dict:
                    "turns": t, "bound": k9_bound(n),
                    "k1_bound": tip5_bound(2 * 128 * n, n)}
                for n, t in turns.items()}
+    sass = {name: {k: stats.get(kernel, {}).get(k, "not measured")
+                   for k in tip5_probe.CLASSES}
+            for name, kernel in (("k9", "tip5_permute_mma"),
+                                 ("k1", "tip5_permute"))}
     emit("tip5_mxu", launches=launches, states=list(MXU_STATES),
-         ragged=MXU_RAGGED, packed_digests=PACKED_DIGESTS,
+         ragged=MXU_RAGGED, edges=list(MXU_EDGES), sass_by_class=sass,
+         packed_digests=PACKED_DIGESTS,
          commit_root=SLICE_ROOT, k9_over_k1={
              n: v["ms"] / v["k1_ms"] for n, v in by_size.items()},
          by_size=by_size, plain_ms=plain_ms,
@@ -1159,7 +1171,8 @@ def phase_tip5_mxu(tables) -> dict:
             "by_size": {n: {k: v[k] for k in ("ms", "wall_ms", "k1_ms",
                                                "k1_wall_ms")}
                         for n, v in by_size.items()},
-            "resident_warps_per_sm": blocks * block // 32}
+            "resident_warps_per_sm": blocks * block // 32,
+            "sass_by_class": sass}
 
 
 #: the polynomial phase's inputs: np.random.default_rng(POLY_SEED)
@@ -2808,16 +2821,12 @@ def phase_probe_alu(rng) -> dict:
                    **bound(24 * n, IMAD_PER_MUL * k * n)}}
 
 
-def phase_tip5_counts(instructions_per_s) -> dict:
+def phase_tip5_counts(instructions_per_s, stats) -> None:
     """Registers, spills, resident warps and SASS per permutation of the
-    Tip5 kernels (probes/tip5_probe.py), by kernel."""
-    from twenty_first_tpu_torch.probes import tip5_probe
-
-    stats = tip5_probe.kernel_stats()
+    Tip5 kernels (``stats``: probes/tip5_probe.py), by kernel."""
     emit("tip5_sass", instructions_per_s=instructions_per_s, **{
         name: {k: v for k, v in st.items() if k != "round_opcodes"}
         for name, st in stats.items()})
-    return stats
 
 
 def main() -> None:
@@ -2840,7 +2849,8 @@ def main() -> None:
     phase_entry()
     merkle = phase_merkle_objects(counters, slice_root, k2["tail_ms"])
     batch = phase_tip5_batch(rng, tables)
-    mxu = phase_tip5_mxu(tables)
+    stats = tip5_probe.kernel_stats()
+    mxu = phase_tip5_mxu(tables, stats)
     from twenty_first_tpu_torch.ops import poly_cuda
 
     poly_counters = (ntt_cuda.ntt_local_pass, poly_cuda.coset_extrapolate_fold,
@@ -2855,7 +2865,7 @@ def main() -> None:
     probe_pass = phase_probe_pass(rng)
     probe_alu = phase_probe_alu(rng)
     rate = probe_alu["instructions_per_s"]
-    stats = phase_tip5_counts(rate)
+    phase_tip5_counts(rate, stats)
     k1.update(tip5_probe.counts(stats, "tip5_permute", N * E, rate))
     mxu.update(tip5_probe.counts(stats, "tip5_permute_mma", N * E, rate))
     log_n1, log_n2 = ntt.four_step_split((N * E).bit_length() - 1)

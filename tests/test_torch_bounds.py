@@ -202,16 +202,18 @@ def test_bound_shares_the_either_products_between_both_pipes(monkeypatch):
 
 
 def test_k9_bound_counts_its_mma_on_the_int8_tensor_cores(monkeypatch):
-    """K9's MDS is 18 u8 mma.m16n8k32 for 16 states a round, over the int8
-    tensor-core rate; its x^7 products stay on IMAD; a ragged batch pays
-    its last warp whole. At 2^22 states its bytes bound it, as K1's do."""
+    """K9's MDS is 8 u8 mma.m16n8k32 and 16 mma.m16n8k16 for each tile of
+    16 states a round, two tiles a warp, over the int8 tensor-core rate;
+    its x^7 products stay on IMAD; a ragged batch pays its last warp whole.
+    At 2^22 states its bytes bound it, as K1's do."""
     from twenty_first_tpu_torch.probes import timing
 
     rate = _h100_rates(monkeypatch)
-    assert chip_smoke.MMA_OPS_PER_WARP_ROUND == 18 * 2 * 16 * 8 * 32
-    got = chip_smoke.k9_bound(17)
+    assert chip_smoke.MMA_OPS_PER_WARP_ROUND == \
+        2 * (8 * (2 * 16 * 8 * 32) + 16 * (2 * 16 * 8 * 16))
+    got = chip_smoke.k9_bound(33)
     assert got["bound_int8_mma_ops"] == 2 * 5 * chip_smoke.MMA_OPS_PER_WARP_ROUND
-    assert got["bound_imads"] == 840 * 17
+    assert got["bound_imads"] == 840 * 33
     assert got["bound_imad_or_fp64_products"] == 0
     assert chip_smoke.bound(0, 0, int8_mma_ops=10**12)["bound_ms"] == \
         pytest.approx(1e12 / timing.INT8_TENSOR_OPS_PER_S * 1e3)

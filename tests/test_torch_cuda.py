@@ -180,11 +180,13 @@ def test_pipeline_root_matches_pinned_jax_root(cuda):
     assert gf.to_u64(got).tolist() == [chip_smoke.PINNED_ROOTS[64]]
 
 
-@pytest.mark.parametrize("rows", [1, 16, 1000, 1 << 16])
+@pytest.mark.parametrize("rows", [1, 15, 16, 17, 31, 32, 33, 1000,
+                                  (1 << 16) + 9, 1 << 22])
 def test_k9_matches_its_twin_and_k1(cuda, rows):
     """K9 (the MDS on the integer tensor cores) against its plain twin on
-    the card and K1, at a ragged tail (1000 = 62 warps of 16 and 8) too,
-    with edge words in the input."""
+    the card and K1, at the edges of a warp's two tiles of 16 states, at
+    ragged tails (1000 = 31 warps of 32 and 8; 2^16 + 9) and at the step's
+    2^22, with edge words in every input."""
     states = _rand((rows, 16))
     states.reshape(-1)[::7] = np.resize(np.array(
         [0, 1, P - 1, P - 2, (1 << 32) - 1], dtype=np.uint64),

@@ -236,9 +236,9 @@ def test_ptxas_report_and_resident_warps(monkeypatch):
 
 
 def test_k9_counts_are_per_permutation_with_imma_apart(monkeypatch):
-    """K9's warp permutes 16 states: its round loop's counts are scaled by
-    32 / 16 to a thread's instructions per permutation (K1's unit), and its
-    IMMA instructions are counted apart (none in K1)."""
+    """K9's warp permutes 32 states, as K1's does: its round loop's counts
+    times the rounds are a thread's instructions per permutation (K1's
+    unit), and its IMMA instructions are counted apart (none in K1)."""
     sass = """
 .L_x_0:
         /*0000*/                   IMMA.16832.U8.U8 R8, R4, R2, RZ ;
@@ -264,15 +264,35 @@ def test_k9_counts_are_per_permutation_with_imma_apart(monkeypatch):
     stats = tip5_probe.kernel_stats()
     assert set(stats) == {"tip5_permute", "tip5_permute_mma"}
     mma = stats["tip5_permute_mma"]
-    assert mma["states_per_warp"] == 16 and mma["registers"] == 28
-    assert mma["sass_per_perm"] == 5 * 5 * 2
-    assert mma["imad_per_perm"] == 5 * 2 and mma["imma_per_perm"] == 20
+    assert mma["registers"] == 28
+    assert mma["sass_per_perm"] == 5 * 5
+    assert mma["imad_per_perm"] == 5 and mma["imma_per_perm"] == 10
     assert mma["resident_warps_per_sm"] == 32
     assert stats["tip5_permute"]["sass_per_perm"] == 25
     assert stats["tip5_permute"]["imma_per_perm"] == 0
     got = tip5_probe.counts(stats, "tip5_permute_mma", 16, 1e6)
-    assert got["imma_per_perm"] == 20
-    assert got["issue_bound_ms"] == pytest.approx(50 * 16 / 1e6 * 1e3)
+    assert got["imma_per_perm"] == 10
+    assert got["issue_bound_ms"] == pytest.approx(25 * 16 / 1e6 * 1e3)
+
+
+def test_sass_classes_count_moves_and_shared_loads():
+    """The classes of a round loop, per permutation (its counts times the
+    rounds): all, IMAD-family (its moves included), the moves ptxas puts on
+    the FMA pipe (IMAD.MOV and IMAD.MOV.U32), IMMA of both shapes,
+    shared-memory loads of every width; without cuobjdump every class says
+    so."""
+    st = {"sass_per_perm": 50, "imad_per_perm": 20, "round_opcodes": {
+        "IMAD.MOV.U32": 2, "IMAD.MOV": 1, "IMAD.WIDE.U32": 1,
+        "IMMA.16816.U8.U8": 2, "IMMA.16832.U8.U8": 1, "LDS.U8": 2,
+        "LDS.128": 1, "IADD3": 3}}
+    got = tip5_probe.sass_classes(st)
+    assert got == {"sass_per_perm": 50, "imad_per_perm": 20,
+                   "imad_mov_per_perm": 3 * 5, "imma_per_perm": 3 * 5,
+                   "lds_per_perm": 3 * 5}
+    assert set(got) == set(tip5_probe.CLASSES)
+    missing = tip5_probe.sass_classes(
+        {"sass_per_perm": "not measured (no cuobjdump)"})
+    assert all(v.startswith("not measured") for v in missing.values())
 
 
 def test_issue_bound_and_counts():

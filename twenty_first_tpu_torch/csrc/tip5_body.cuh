@@ -1,9 +1,11 @@
-// The Tip5 arithmetic that K1/K2 (tip5.cu) and K9 (tip5_mma.cu) share:
-// the S-box (the byte lookup on the Montgomery form and x^7 on lazy
-// residues), the fold of an exact MDS sum into a lazy residue, the final
-// canonicalisation and the block's table loads. Each translation unit gets
-// its own copy (an anonymous namespace, every function inlined), so moving
-// them here changes no instruction of K1 or K2.
+// The Tip5 arithmetic of K1/K2 (tip5.cu): the S-box (the byte lookup on
+// the Montgomery form and x^7 on lazy residues), the fold of an exact MDS
+// sum into a lazy residue, the final canonicalisation and the block's
+// table loads. K9 (tip5_mma.cu) takes the Montgomery conversions and the
+// canonicalisation; its lookup, x^7 and table loads are its own. Each
+// translation unit gets its own copy (an anonymous namespace, every
+// function inlined), so moving them here changes no instruction of K1 or
+// K2.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -6,9 +6,12 @@ state word splits into 8 byte planes, each 16-bit circulant entry into a
 low and a high byte, and every byte x byte product summed over 16 taps is
 exact; the partial sums regroup by byte shift into one 128-bit reduction.
 Here that is K9 (``tip5_permute_mma``, ``csrc/tip5_mma.cu``): u8 x u8 ->
-s32 ``mma.sync`` on the integer tensor cores, 18 a round for 16 states,
-with the S-box on the CUDA cores as in K1. ``MDS_BYTE_BLOCKS`` are the
-circulant's byte blocks (the de-interleaved ``_M_LO``/``_M_HI`` of the
+s32 ``mma.sync`` on the integer tensor cores, 24 a round for each tile of
+16 states, two tiles a warp (the odd byte shifts one k32 product each, the
+even ones two chained k16 with the round constant in the accumulator),
+with the S-box on the CUDA cores (x^7 three products deep on lazy
+residues). ``MDS_BYTE_BLOCKS`` are
+the circulant's byte blocks (the de-interleaved ``_M_LO``/``_M_HI`` of the
 JAX module).
 
 The entry points keep the JAX layouts: ``permutation`` takes and returns

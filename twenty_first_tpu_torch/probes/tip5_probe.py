@@ -9,13 +9,12 @@ For each kernel it reads, from the build:
   (``nvcc -Xptxas -v``, kept beside the library);
 * resident warps per SM at the launch's block size, as the CUDA runtime
   reports them for this build (``tip5_cuda.occupancy``);
-* SASS instructions per permutation: the round loop's body in
-  ``cuobjdump -sass`` (the permutation keeps one round per loop iteration)
-  times five, and how many of them are IMAD-family, counted by
-  ``alu_probe.sass_per_perm``. K9's warp hashes 16 states, not 32, so its
-  counts are scaled by 32 / 16 to instructions a thread issues per
-  permutation, K1's unit; its IMMA instructions (the tensor-core
-  products) are counted apart.
+* SASS instructions per permutation by class (``CLASSES``): the round
+  loop's body in ``cuobjdump -sass`` (the permutation keeps one round per
+  loop iteration) times five, and how many of them are IMAD-family, IMAD
+  moves, IMMA (the tensor-core products) and shared-memory loads. Every
+  kernel's warp permutes 32 states (K9's as two tiles of 16), so a
+  thread's instructions are those of one permutation.
 
 With a card it also times the kernels at the main path's shapes (device
 time, ``timing.cuda_ms``) and sets each beside its issue-bound time:
@@ -50,14 +49,18 @@ from . import alu_probe
 from .timing import cuda_ms, require_card, sm_clock_mhz
 
 #: the kernels by a regular expression on their mangled names, with the
-#: block size of their launch and the states a warp permutes
+#: block size of their launch
 KERNELS = {
-    "tip5_permute": (r"tip5_permute_kernelIL[bi]0E", 128, 32),
-    "tip5_trace": (r"tip5_permute_kernelIL[bi]1E", 128, 32),
-    "merkle_level": (r"tip5_permute_kernelILi2E", 128, 32),
-    "merkle_commit": (r"merkle_commit_kernel", 256, 32),
-    "tip5_permute_mma": (r"tip5_permute_mma_kernel", 128, 16),
+    "tip5_permute": (r"tip5_permute_kernelIL[bi]0E", 128),
+    "tip5_trace": (r"tip5_permute_kernelIL[bi]1E", 128),
+    "merkle_level": (r"tip5_permute_kernelILi2E", 128),
+    "merkle_commit": (r"merkle_commit_kernel", 256),
+    "tip5_permute_mma": (r"tip5_permute_mma_kernel", 128),
 }
+#: SASS a permutation by class: all, IMAD-family, its moves, tensor-core
+#: products, shared-memory loads
+CLASSES = ("sass_per_perm", "imad_per_perm", "imad_mov_per_perm",
+           "imma_per_perm", "lds_per_perm")
 #: the main path's leaf rows (W = 8, n = 2^20, expansion 4)
 LEAF_ROWS = 1 << 22
 TRACE_ROWS = 1 << 16
@@ -98,25 +101,37 @@ def kernel_stats(library: Path | None = None) -> dict[str, dict]:
     sass = _build.sass(library)  # builds this build first
     report = ptxas_report(_build.build_log(library))
     stats = {}
-    for name, (tag, threads, warp_states) in KERNELS.items():
+    for name, (tag, threads) in KERNELS.items():
         mangled = next((k for k in report if re.search(tag, k)), None)
         if mangled is None:
             continue
         res = report[mangled]
         st = alu_probe.sass_per_perm(sass, tag, NUM_ROUNDS)
-        if isinstance(st.get("sass_per_perm"), int):
-            scale = 32 // warp_states  # a thread's share of a permutation
-            imma = sum(n for op, n in st["round_opcodes"].items()
-                       if op.startswith("IMMA"))
-            st.update(sass_per_perm=st["sass_per_perm"] * scale,
-                      imad_per_perm=st["imad_per_perm"] * scale,
-                      imma_per_perm=imma * NUM_ROUNDS * scale)
-        stats[name] = {"threads": threads, "states_per_warp": warp_states,
-                       **res, **st}
+        stats[name] = {"threads": threads, **res, **st, **sass_classes(st)}
         if library is None:
             block, blocks = _occupancy(name, threads)
             stats[name]["resident_warps_per_sm"] = blocks * block // 32
     return stats
+
+
+def sass_classes(st: dict) -> dict:
+    """``CLASSES`` of one kernel from ``alu_probe.sass_per_perm``'s round
+    loop, per permutation: the loop's counts times the rounds. IMAD-family
+    includes the moves ptxas puts on the FMA pipe (IMAD.MOV,
+    IMAD.MOV.U32), which are also counted apart."""
+    if not isinstance(st.get("sass_per_perm"), int):
+        return {k: st.get("sass_per_perm") for k in CLASSES}
+    ops = st["round_opcodes"]
+
+    def per_perm(*prefixes):
+        return sum(n for op, n in ops.items()
+                   if op.startswith(prefixes)) * NUM_ROUNDS
+
+    return {"sass_per_perm": st["sass_per_perm"],
+            "imad_per_perm": st["imad_per_perm"],
+            "imad_mov_per_perm": per_perm("IMAD.MOV"),
+            "imma_per_perm": per_perm("IMMA"),
+            "lds_per_perm": per_perm("LDS")}
 
 
 def _occupancy(name: str, threads: int) -> tuple[int, int]:
@@ -154,8 +169,7 @@ def issue_bound_ms(stats: dict, perms: dict[str, int], rate) -> float | str:
 def counts(stats: dict, name: str, perms: int, rate) -> dict:
     """One kernel's SASS per permutation, registers, spills and resident
     warps, and its issue-bound ms for ``perms`` permutations."""
-    keys = ("sass_per_perm", "imad_per_perm", "imma_per_perm", "registers",
-            "spill_bytes", "resident_warps_per_sm")
+    keys = (*CLASSES, "registers", "spill_bytes", "resident_warps_per_sm")
     st = stats.get(name, {})
     return {**{k: st.get(k, "not measured") for k in keys},
             "issue_bound_ms": issue_bound_ms(stats, {name: perms}, rate)}
