@@ -1246,6 +1246,9 @@ def phase_poly_batch(rng, counters) -> dict:
     inv_x[3, N // 2] = 0  # a zero element: row 3's determinants hold a 0
     inv_dev = gf_ext.from_u64(inv_x).cuda()
     table = ntt.conv_table_prepare(table_values)
+    # a base table under xfield=True, table_xfield=True: the table's own
+    # field decides, as on the JAX package's host route
+    base_table_x = ntt.conv_table_prepare(table_values[:CONV_XFE_N])
 
     def path(plain=False):
         ev = poly_batch.batch_coset_evaluate(trace, N * E, plain=plain)
@@ -1270,6 +1273,9 @@ def phase_poly_batch(rng, counters) -> dict:
                 conv_xa, conv_xb, xfield=True, divide=d, plain=plain)
                for d in (False, True)},
             "conv_table": ntt.conv_table_values(conv_a, table, plain=plain),
+            "conv_table_base_on_xfe": ntt.conv_table_values(
+                conv_xa, base_table_x, xfield=True, table_xfield=True,
+                plain=plain),
             "xfe_batch_inversion": gf_ext.to_u64(gf_ext.batch_inversion(
                 inv_dev, plain=plain)),
         }

@@ -242,9 +242,14 @@ def test_mul_by_i_lazy_matches_jax(inverse):
 
 
 def test_mul_by_pow2_lazy_rejects_bad_shift():
-    for e in (0, 96):
-        with pytest.raises(ValueError):
+    """A shift outside 1..95: JAX asserts, and the port's error is an
+    AssertionError as well as a ValueError."""
+    for e in (0, 96, 191):
+        with pytest.raises(AssertionError):
+            jgf.mul_by_pow2_lazy(jgf.to_limbs(np.array([1], np.uint64)), e)
+        with pytest.raises(AssertionError) as err:
             gf.mul_by_pow2_lazy(gf.from_u64([1]), e)
+        assert isinstance(err.value, ValueError)
 
 
 def test_inverse_or_zero_matches_jax():

@@ -95,6 +95,19 @@ def test_mul_by_pow2_lazy_equals_jax(e, negate):
           jgf64.mul_by_pow2_lazy(jnp.asarray(a), e, negate=negate))
 
 
+@pytest.mark.parametrize("e", [0, 96, 191])
+def test_mul_by_pow2_lazy_range_error_is_jaxs(e):
+    """JAX asserts 0 < e < 96; the port raises an error that is an
+    AssertionError and a ValueError, so callers of either package catch
+    it."""
+    a = _words(9, True)[:4]
+    with pytest.raises(AssertionError):
+        jgf64.mul_by_pow2_lazy(jnp.asarray(a), e)
+    with pytest.raises(AssertionError) as err:
+        gf64.mul_by_pow2_lazy(_port(a), e)
+    assert isinstance(err.value, ValueError)
+
+
 @pytest.mark.parametrize("inverse", [False, True])
 def test_mul_by_i_lazy_equals_jax(inverse):
     a = _words(8, True)

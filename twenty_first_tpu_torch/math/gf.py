@@ -241,12 +241,17 @@ def sub_lazy(a, b):
     return d - k * EPSILON
 
 
+class _ShiftRangeError(ValueError, AssertionError):
+    """A shift outside 1..95. The JAX package asserts the range, so callers
+    of either package catch this as an AssertionError or a ValueError."""
+
+
 def mul_by_pow2_lazy(a, e: int, negate: bool = False):
     """a * (+-2^e) for 0 < e < 96, a lazy residue out, from the shifted
     32-bit words of a folded as the JAX package folds them (the 2^128 word
     by 2^128 == -2^32)."""
     if not 0 < e < 96:
-        raise ValueError(f"shift must be 1..95, got {e}")
+        raise _ShiftRangeError(f"shift must be 1..95, got {e}")
     lo, hi = a & _M32, _shr(a, 32)
     zero = torch.zeros_like(a)
     q, r = divmod(e, 32)

@@ -880,8 +880,17 @@ def twiddle_factors(slice_len: int, root_of_unity) -> list:
 
 def _conv_operand(values, xfield: bool, device):
     """Host (..., n) or (..., n, 3) uint64 -> carrier on ``device``, xfe
-    components on axis -2, after the length check."""
+    components on axis -2, after the length check. An array with fewer
+    axes than its field needs raises numpy's AxisError (a ValueError and
+    an IndexError), as the host round trip does; so does an xfe array
+    without 3 components, whose last axis the host round trip reads
+    unchecked."""
     arr = np.asarray(values, dtype=np.uint64)
+    if arr.ndim < 1 + xfield:
+        raise np.exceptions.AxisError(-1 - xfield, arr.ndim)
+    if xfield and arr.shape[-1] != 3:
+        raise np.exceptions.AxisError(
+            f"an xfe operand needs 3 components, got {arr.shape[-1]}")
     n = arr.shape[-2] if xfield else arr.shape[-1]
     _check_len(n)
     x = gf_ext.from_u64(arr) if xfield else gf.from_u64(arr)
@@ -944,11 +953,14 @@ def conv_table_values(a, table: ConvTable, *, xfield: bool = False,
                       plain: bool = False) -> np.ndarray:
     """intt(ntt(a) * table) with ``table`` from conv_table_prepare, on the
     table's device. a: (..., n) base-field or (..., n, 3) extension-field
-    (``xfield``); ``table_xfield`` must name the table's field, and an xfe
-    table needs xfe ``a``."""
-    if table_xfield != table.xfield or (table.xfield and not xfield):
-        raise ValueError(f"a {'xfe' if table.xfield else 'base'} table with "
-                         f"xfield={xfield}, table_xfield={table_xfield}")
+    (``xfield``). The table's own field decides, not ``table_xfield``,
+    as on the JAX package's host round trip. An xfe table needs xfe
+    ``a``."""
+    if table.xfield and not xfield:
+        if np.shape(a)[-1:] == (1,):  # the host route broadcasts (..., 1)
+            _check_len(3)  # by (1, 3) and refuses the length-3 product
+        raise ValueError(f"an xfe table with base-field a "
+                         f"(table_xfield={table_xfield})")
     t = table.values
     fa = ntt(_conv_operand(a, xfield, t.device), plain=plain)
     if table.xfield:
