@@ -77,6 +77,7 @@ from . import gf_numpy as gfn
 from . import xgf_numpy as xgfn
 from .b_field_element import P, PRIMITIVE_ROOTS
 from ..ops import ntt_cuda, poly_cuda
+from ..spans import span
 from ..ops.ntt_cuda import MAX_LOG_T, bit_reverse_permutation  # noqa: F401
 
 MAX_LOG_N = 32
@@ -236,44 +237,46 @@ def ntt(x, inverse: bool = False, *, tables: NttTables | None = None,
         if tables is not None or plain or post is not None or out is not None:
             raise ValueError("tables, plain, post and out take a tensor")
         return _ntt_objects(x, inverse)
-    n = x.shape[-1]
-    _check_len(n)
-    if post is not None and post.shape != (n,):
-        raise ValueError(f"post must be an ({n},) vector, got "
-                         f"{tuple(post.shape)}")
-    if out is not None and out.shape != x.shape:
-        raise ValueError(f"out must have x's shape {tuple(x.shape)}, got "
-                         f"{tuple(out.shape)}")
-    if n <= 1:
-        y = x if post is None else gf.mul(x, post)
-        return y.clone() if out is None else out.copy_(y)
-    if tables is None:
-        tables = _cached_tables(n, inverse, x.device)
-    if tables.n != n or tables.inverse != inverse:
-        raise ValueError("tables were built for another size or direction")
-    scale = pow(n, P - 2, P) if inverse else 1
-    rows = x.reshape(-1, n).contiguous()
-    if tables.tw3 is not None:
-        # pass 1 changes the layout, so it cannot write over its input: an
-        # out that shares the input's storage (say out=x) gets a buffer of
-        # its own and a copy, as the two-pass route's scratch does
-        direct = (out is not None and out.is_contiguous()
-                  and out.untyped_storage().data_ptr()
-                  != rows.untyped_storage().data_ptr())
-        res = out.view(-1, n) if direct else torch.empty_like(rows)
-        _three_pass(rows, res, tables, (ntt_cuda.ntt_local_pass_plain
-                                        if plain else ntt_cuda.ntt_local_pass),
-                    scale, post)
-        if out is None:
-            return res.view(x.shape)
-        if res.data_ptr() != out.data_ptr():
-            out.copy_(res.view(x.shape))
-        return out
-    res = torch.empty_like(rows) if out is None else out
-    ntt_columns(rows.view(-1, n, 1), res.view(-1, n, 1), inverse,
-                tables=tables, diag=None if post is None else post.view(n, 1),
-                scale=scale, plain=plain)
-    return res.view(x.shape)
+    with span("ntt"):
+        n = x.shape[-1]
+        _check_len(n)
+        if post is not None and post.shape != (n,):
+            raise ValueError(f"post must be an ({n},) vector, got "
+                             f"{tuple(post.shape)}")
+        if out is not None and out.shape != x.shape:
+            raise ValueError(f"out must have x's shape {tuple(x.shape)}, got "
+                             f"{tuple(out.shape)}")
+        if n <= 1:
+            y = x if post is None else gf.mul(x, post)
+            return y.clone() if out is None else out.copy_(y)
+        if tables is None:
+            tables = _cached_tables(n, inverse, x.device)
+        if tables.n != n or tables.inverse != inverse:
+            raise ValueError("tables were built for another size or direction")
+        scale = pow(n, P - 2, P) if inverse else 1
+        rows = x.reshape(-1, n).contiguous()
+        if tables.tw3 is not None:
+            # pass 1 changes the layout, so it cannot write over its input: an
+            # out that shares the input's storage (say out=x) gets a buffer of
+            # its own and a copy, as the two-pass route's scratch does
+            direct = (out is not None and out.is_contiguous()
+                      and out.untyped_storage().data_ptr()
+                      != rows.untyped_storage().data_ptr())
+            res = out.view(-1, n) if direct else torch.empty_like(rows)
+            _three_pass(rows, res, tables,
+                        (ntt_cuda.ntt_local_pass_plain if plain
+                         else ntt_cuda.ntt_local_pass), scale, post)
+            if out is None:
+                return res.view(x.shape)
+            if res.data_ptr() != out.data_ptr():
+                out.copy_(res.view(x.shape))
+            return out
+        res = torch.empty_like(rows) if out is None else out
+        ntt_columns(rows.view(-1, n, 1), res.view(-1, n, 1), inverse,
+                    tables=tables,
+                    diag=None if post is None else post.view(n, 1),
+                    scale=scale, plain=plain)
+        return res.view(x.shape)
 
 
 def ntt_columns(x, out, inverse: bool = False, *,

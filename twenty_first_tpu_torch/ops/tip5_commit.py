@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..spans import span
 from ..tip5.constants import DIGEST_LENGTH, STATE_SIZE
 from ..tip5.permutation import tip5_tables
 from . import tip5_cuda
@@ -92,12 +93,13 @@ def reduce_layers(digests, num_layers: int, *, tables=None,
         raise ValueError(f"digests must be (b, 5), got {tuple(digests.shape)}")
     rows = digests.shape[0]
     _check_divisible(rows, num_layers)
-    tables = tables if tables is not None else tip5_tables(digests.device)
-    if rows == 0 or num_layers == 0:
-        return digests.contiguous()
-    steps = plan(rows, num_layers,
-                 _resident(digests, plain, resident_threads))
-    return _run(digests.contiguous(), steps, tables, plain)
+    with span("tree"):
+        tables = tables if tables is not None else tip5_tables(digests.device)
+        if rows == 0 or num_layers == 0:
+            return digests.contiguous()
+        steps = plan(rows, num_layers,
+                     _resident(digests, plain, resident_threads))
+        return _run(digests.contiguous(), steps, tables, plain)
 
 
 def commit_states(states, num_layers: int, *, tables=None,

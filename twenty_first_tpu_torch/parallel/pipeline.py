@@ -47,6 +47,7 @@ from ..math import gf_numpy as gfn
 from ..math import ntt as ntt_mod
 from ..math.b_field_element import GENERATOR
 from ..ops import tip5_commit
+from ..spans import span
 from ..tip5 import permutation as tip5
 from ..tip5.constants import DIGEST_LENGTH, RATE, STATE_SIZE
 from ..tip5.digest import Digest
@@ -109,22 +110,25 @@ class TraceLdeCommit(nn.Module):
         if trace.device != self.offset_powers.device:
             raise ValueError(f"trace on {trace.device}, tables on "
                              f"{self.offset_powers.device}")
-        # the iNTT scales coefficient j by offset^j in its last pass's
-        # epilogue and writes straight into the head of the padded planes
-        padded = torch.zeros((self.w, self.big_n), dtype=trace.dtype,
-                             device=trace.device)
-        ntt_mod.ntt(trace, inverse=True, plain=plain,
-                    tables=self._ntt_tables("inv", self.n, True),
-                    post=self.offset_powers, out=padded[:, :self.n])
-        evals = ntt_mod.ntt(padded, plain=plain,
-                            tables=self._ntt_tables("fwd", self.big_n, False))
+        with span("lde"):
+            # the iNTT scales coefficient j by offset^j in its last pass's
+            # epilogue and writes straight into the head of the padded planes
+            padded = torch.zeros((self.w, self.big_n), dtype=trace.dtype,
+                                 device=trace.device)
+            ntt_mod.ntt(trace, inverse=True, plain=plain,
+                        tables=self._ntt_tables("inv", self.n, True),
+                        post=self.offset_powers, out=padded[:, :self.n])
+            evals = ntt_mod.ntt(padded, plain=plain,
+                                tables=self._ntt_tables("fwd", self.big_n,
+                                                        False))
         return hash_rows(evals, tables=(self.round_constants,
                                         self.lookup_table), plain=plain)
 
     def forward(self, trace, plain: bool = False):
-        return tip5_commit.reduce_layers(
-            self.leaf_digests(trace, plain), self.big_n.bit_length() - 1,
-            tables=(self.round_constants, self.lookup_table), plain=plain)
+        with span("trace_commit"):
+            return tip5_commit.reduce_layers(
+                self.leaf_digests(trace, plain), self.big_n.bit_length() - 1,
+                tables=(self.round_constants, self.lookup_table), plain=plain)
 
 
 def hash_rows(evals, *, tables=None, plain: bool = False):
@@ -133,12 +137,13 @@ def hash_rows(evals, *, tables=None, plain: bool = False):
     w, big_n = evals.shape
     if w > RATE:
         raise ValueError(f"at most {RATE} columns fit one permutation, got {w}")
-    states = torch.zeros((big_n, STATE_SIZE), dtype=evals.dtype,
-                         device=evals.device)
-    states[:, :w] = evals.t()
-    states[:, RATE:] = 1
-    leafs = tip5.permutation(states, tables=tables, plain=plain)
-    return leafs[:, :DIGEST_LENGTH].contiguous()
+    with span("leaf_hash"):
+        states = torch.zeros((big_n, STATE_SIZE), dtype=evals.dtype,
+                             device=evals.device)
+        states[:, :w] = evals.t()
+        states[:, RATE:] = 1
+        leafs = tip5.permutation(states, tables=tables, plain=plain)
+        return leafs[:, :DIGEST_LENGTH].contiguous()
 
 
 def lde_commit_diags(n: int, expansion: int = 4, device="cuda"):

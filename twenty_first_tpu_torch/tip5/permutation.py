@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..math import gf
+from ..spans import span
 from .constants import (
     CAPACITY,
     DIGEST_LENGTH,
@@ -201,23 +202,34 @@ def pad_for_varlen(x):
         pad = np.zeros(shape, dtype=x.dtype)
         pad[..., 0] = 1
         return np.concatenate([x, pad], axis=-1)
-    pad = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    pad[..., 0] = 1
-    return torch.cat([x, pad], dim=-1)
+    with span("pad"):
+        pad = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        pad[..., 0] = 1
+        return torch.cat([x, pad], dim=-1)
 
 
 def hash_varlen_padded(padded, *, tables=None, plain: bool = False):
     """Variable-length hash of already padded equal-length inputs
     (..., k * RATE) -> (..., 5): absorb chunk by chunk (overwrite the rate,
-    permute), starting from the all-zero VariableLength state."""
-    tables = tables if tables is not None else tip5_tables(padded.device)
-    state = torch.zeros(padded.shape[:-1] + (STATE_SIZE,), dtype=padded.dtype,
-                        device=padded.device)
-    for start in range(0, padded.shape[-1], RATE):
-        state = torch.cat([padded[..., start:start + RATE],
-                           state[..., RATE:]], dim=-1)
-        state = permutation(state, tables=tables, plain=plain)
-    return state[..., :DIGEST_LENGTH]
+    permute), starting from the all-zero VariableLength state. Counts the
+    chunks absorbed in ``hash_varlen_padded.absorbs``."""
+    with span("sponge"):
+        tables = tables if tables is not None else tip5_tables(padded.device)
+        state = torch.zeros(padded.shape[:-1] + (STATE_SIZE,),
+                            dtype=padded.dtype, device=padded.device)
+        starts = range(0, padded.shape[-1], RATE)
+        for start in starts:
+            state = torch.cat([padded[..., start:start + RATE],
+                               state[..., RATE:]], dim=-1)
+            state = permutation(state, tables=tables, plain=plain)
+        _sponge.absorbs += len(starts)
+        return state[..., :DIGEST_LENGTH]
+
+
+hash_varlen_padded.absorbs = 0
+# the counter's function by a name of its own: a caller that rebinds
+# ``hash_varlen_padded`` to a wrapper of it still counts here
+_sponge = hash_varlen_padded
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,7 @@ from .. import native
 from ..errors import MerkleTreeError
 from ..math import gf
 from ..ops import tip5_commit, tip5_cuda
+from ..spans import span
 from ..tip5.digest import Digest
 from ..tip5.permutation import tip5_tables
 from ..tip5.tip5 import Tip5
@@ -150,23 +151,26 @@ class MerkleTree:
         """The tree over ``leafs``: (n, 5) numpy uint64, a list of Digests
         (hashed on the host up to HOST_MERKLE_MAX_LEAFS rows, and the nodes
         sent to ``device``) or an int64 tensor (its own device)."""
-        leafs = _routed_leafs(leafs, device)
-        n = leafs.shape[0]
-        height = _check_num_leafs(n)
-        if height > MAX_TREE_HEIGHT:
-            raise MerkleTreeError(f"tree height {height} exceeds {MAX_TREE_HEIGHT}")
-        if isinstance(leafs, np.ndarray):
-            return cls(_host_nodes(leafs), device)
-        nodes = torch.empty((2 * n, Digest.LEN), dtype=leafs.dtype,
-                            device=leafs.device)
-        nodes[0] = 0
-        nodes[n:] = leafs
-        tables = tip5_tables(leafs.device)
-        lo = n
-        while lo > 1:
-            _level(nodes[lo: 2 * lo], tables, plain, out=nodes[lo // 2: lo])
-            lo //= 2
-        return cls(nodes)
+        with span("tree"):
+            leafs = _routed_leafs(leafs, device)
+            n = leafs.shape[0]
+            height = _check_num_leafs(n)
+            if height > MAX_TREE_HEIGHT:
+                raise MerkleTreeError(
+                    f"tree height {height} exceeds {MAX_TREE_HEIGHT}")
+            if isinstance(leafs, np.ndarray):
+                return cls(_host_nodes(leafs), device)
+            nodes = torch.empty((2 * n, Digest.LEN), dtype=leafs.dtype,
+                                device=leafs.device)
+            nodes[0] = 0
+            nodes[n:] = leafs
+            tables = tip5_tables(leafs.device)
+            lo = n
+            while lo > 1:
+                _level(nodes[lo: 2 * lo], tables, plain,
+                       out=nodes[lo // 2: lo])
+                lo //= 2
+            return cls(nodes)
 
     # The reference's par_new/sequential_new distinction is a host-threading
     # artifact; here both are the same batched level reduction.
