@@ -24,7 +24,8 @@ set to 0 just before it and read just after:
   (K3 and K1 for the leaf digests, K2's two launches, K1);
 * the standalone Tip5 batch path: permutation_batch at 2^16 and 2^22
   states, the T4/T5 entry points, trace, hash_varlen and
-  hash_varlen_ragged (K1 and its trace mode);
+  hash_varlen_ragged (K1 and its trace and absorb modes); K1's absorb
+  mode at the table commit's (2^17, 16,390) against its plain twin;
 * the tensor-core Tip5 and the packed commit's entry points
   (ops/tip5_mxu.py, ops/tip5_packed.py): K9, the permutation with its MDS
   as u8 mma on the integer tensor cores, against its twin and K1 at 2^16
@@ -219,6 +220,10 @@ BATCH_STATES = (1 << 16, N * E)
 T45_STATES = 4096
 TRACE_STATES = 1 << 16
 MIXED_INPUTS, MIXED_MAX_LENGTH = 256, 120
+# K1's absorb mode at the table commit's shape (port_bench's
+# table_commit.r17_l16384): 2^17 rows of 16,384 words, padded to 16,390
+ABSORB_SHAPE = (1 << 17, 16390)
+ABSORB_SEED = 20
 # the authenticated-structures path: leaf indices opened (the order of a
 # STARK's query count), the MMR's leafs (3 * 2^21 - 1: 22 peaks) and the
 # leafs its successor proof appends, the small trees timed beside the big one
@@ -1031,6 +1036,38 @@ def phase_tip5_batch(rng, tables) -> dict:
                       "plain_ms": trace_plain_ms,
                       **tip5_bound(8 * (16 + 96) * TRACE_STATES,
                                    TRACE_STATES)}}
+
+
+def phase_k1_absorb(tables) -> dict:
+    """K1's absorb mode at the table commit's shape: one launch for every
+    chunk of every row of a (2^17, 16,390) table (rows past 2^31 bytes,
+    edge words first in every row), equal to the plain twin
+    ``tip5_absorb_plain`` on the same table."""
+    from twenty_first_tpu_torch.math import gf
+    from twenty_first_tpu_torch.ops import tip5_cuda
+
+    rows, width = ABSORB_SHAPE
+    g = torch.Generator(device="cuda")
+    g.manual_seed(ABSORB_SEED)
+    table = torch.randint(0, (1 << 63) - 1, ABSORB_SHAPE, generator=g,
+                          device="cuda", dtype=torch.int64)
+    edges = gf.from_u64(np.array([0, 1, P - 1, (1 << 32) - 1, 1 << 32,
+                                  (1 << 32) + 1], dtype=np.uint64)).cuda()
+    table[:, :edges.shape[0]] = edges
+    before = tip5_cuda.tip5_permute.launches
+    got = tip5_cuda.tip5_absorb(table, *tables)
+    torch.cuda.synchronize()
+    if tip5_cuda.tip5_permute.launches != before + 1:
+        raise AssertionError("K1's absorb mode took more than one launch")
+    err = require_equal("K1 absorb at the table's shape", got,
+                        tip5_cuda.tip5_absorb_plain(table, *tables))
+    ms = cuda_ms(lambda: tip5_cuda.tip5_absorb(table, *tables), 3)
+    perms = rows * (width // 10)
+    del table, got
+    torch.cuda.empty_cache()  # 17 GB, before the phases that fill the card
+    emit("k1_absorb", shape=[rows, width], twin_equal=True, ms=ms,
+         ns_per_perm=ms * 1e6 / perms)
+    return {"max_abs_err": err, "ms": ms, "shape": [rows, width]}
 
 
 def slice_leaf_states():
@@ -2855,6 +2892,7 @@ def main() -> None:
     phase_entry()
     merkle = phase_merkle_objects(counters, slice_root, k2["tail_ms"])
     batch = phase_tip5_batch(rng, tables)
+    batch["absorb_mode"] = phase_k1_absorb(tables)
     stats = tip5_probe.kernel_stats()
     mxu = phase_tip5_mxu(tables, stats)
     from twenty_first_tpu_torch.ops import poly_cuda
@@ -2908,7 +2946,8 @@ def main() -> None:
                               "host_layers": host["launches"]["tip5_permute"],
                               "distributed": dist["tip5_permute"],
                               "scrambled": scr["tip5_permute"]},
-         **k1, **NO_LIBRARY, "trace_mode": batch["trace"]},
+         **k1, **NO_LIBRARY, "trace_mode": batch["trace"],
+         "absorb_mode": batch["absorb_mode"]},
         {"name": "merkle_commit", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/tip5.cu",
          "replaces": f"{pallas}:262 (T2)",

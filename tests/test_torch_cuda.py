@@ -6,6 +6,7 @@ Marked ``cuda``: without a CUDA device every test skips. On a GPU machine:
 """
 
 import contextlib
+import functools
 
 import numpy as np
 import pytest
@@ -254,6 +255,65 @@ def test_hash_varlen_ragged_matches_jax(cuda):
     np.testing.assert_array_equal(got, jperm.hash_varlen_ragged(inputs))
     np.testing.assert_array_equal(tperm.hash_varlen(inputs[-1]),
                                   jperm.hash_varlen(inputs[-1]))
+
+
+@functools.lru_cache(maxsize=None)
+def _varlen_rows(length: int):
+    """1,000 inputs of ``length`` words and JAX's digests of them (rows
+    hash independently, so a test of fewer rows takes the first ones)."""
+    x = np.random.default_rng(length).integers(0, P, size=(1000, length),
+                                                dtype=np.uint64)
+    return x, jperm.hash_varlen(x)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 129, 1000])
+@pytest.mark.parametrize("length", [0, 1, 9, 10, 11, 19, 20, 16384])
+def test_k1_absorb_matches_jax(cuda, length, rows):
+    """K1's absorb mode through ``hash_varlen_padded``: one launch for all
+    the chunks of all the rows, counted as k absorbs."""
+    x, want = _varlen_rows(length)
+    padded = tperm.pad_for_varlen(gf.from_u64(x[:rows]).to(cuda))
+    launches = tip5_cuda.tip5_permute.launches
+    absorbs = tperm.hash_varlen_padded.absorbs
+    got = tperm.hash_varlen_padded(padded)
+    assert tip5_cuda.tip5_permute.launches == launches + 1
+    assert tperm.hash_varlen_padded.absorbs == absorbs + padded.shape[1] // 10
+    np.testing.assert_array_equal(gf.to_u64(got), want[:rows])
+
+
+@pytest.mark.parametrize("rows", [1 << 15, 1 << 17])
+def test_k1_absorb_matches_jax_at_the_tables_rows(cuda, rows):
+    """Many full blocks of the launch: 2^15 rows, and the table commit's
+    2^17, of three chunks each."""
+    x = np.random.default_rng(rows).integers(0, P, size=(rows, 20),
+                                             dtype=np.uint64)
+    padded = tperm.pad_for_varlen(gf.from_u64(x).to(cuda))
+    launches = tip5_cuda.tip5_permute.launches
+    got = tperm.hash_varlen_padded(padded)
+    assert tip5_cuda.tip5_permute.launches == launches + 1
+    np.testing.assert_array_equal(gf.to_u64(got), jperm.hash_varlen(x))
+
+
+def test_k1_absorb_reads_rows_in_place(cuda):
+    """Rows read at their stride: a row view of a wider tensor (a stride
+    above k * 10 words, starting 8 bytes off a 16-byte boundary), and rows
+    that sit beyond 2^31 bytes (64-bit offsets)."""
+    x, want = _varlen_rows(19)
+    rc, lut = tip5_tables(cuda)
+    padded = tperm.pad_for_varlen(gf.from_u64(x[:129]).to(cuda))
+    wide = torch.zeros((129, 37), dtype=torch.int64, device=cuda)
+    view = wide[:, 5:25]
+    view.copy_(padded)
+    assert view.stride(0) == 37 and view.data_ptr() % 16 == 8
+    np.testing.assert_array_equal(
+        gf.to_u64(tip5_cuda.tip5_absorb(view, rc, lut)), want[:129])
+    stride = (1 << 28) + 3  # row 2 starts past 2^32 bytes
+    far = torch.zeros(2 * stride + 20, dtype=torch.int64, device=cuda)
+    rows = far.as_strided((3, 20), (stride, 1))
+    rows.copy_(padded[:3])
+    assert rows.stride(0) * 2 * 8 > 1 << 32
+    np.testing.assert_array_equal(
+        gf.to_u64(tip5_cuda.tip5_absorb(rows, rc, lut)), want[:3])
 
 
 @pytest.mark.parametrize("variant", pass_probe.VARIANTS)

@@ -14,6 +14,7 @@ from twenty_first_tpu_torch.math import gf
 from twenty_first_tpu_torch.ops import tip5_cuda
 from twenty_first_tpu_torch.tip5 import constants as tconst
 from twenty_first_tpu_torch.tip5 import permutation as tperm
+from twenty_first_tpu_torch.tip5.constants import RATE
 
 RNG = np.random.default_rng(11)
 EDGES = [0, 1, P - 1, (1 << 32) - 1, 1 << 32, (1 << 32) + 1]
@@ -113,7 +114,7 @@ def test_hash_10_and_hash_pair_match_jax():
     np.testing.assert_array_equal(gf.to_u64(got), want)
 
 
-@pytest.mark.parametrize("length", [0, 1, 9, 10, 19, 64])
+@pytest.mark.parametrize("length", [0, 1, 9, 10, 19, 64, 11, 20])
 def test_varlen_hash_matches_jax(length):
     x = RNG.integers(0, P, size=(4, length), dtype=np.uint64)
     padded = tperm.pad_for_varlen(_to_port(x))
@@ -125,6 +126,65 @@ def test_varlen_hash_matches_jax(length):
     np.testing.assert_array_equal(gf.to_u64(got), jperm.hash_varlen(x))
     assert Digest.from_array(gf.to_u64(got)[0]) == Tip5.hash_varlen(
         [bfe(int(v)) for v in x[0]])
+    # the absorb wrapper on a CPU tensor: the plain twin, no launch
+    launches = tip5_cuda.tip5_permute.launches
+    absorbed = tip5_cuda.tip5_absorb(padded, *tperm.tip5_tables("cpu"))
+    assert tip5_cuda.tip5_permute.launches == launches
+    np.testing.assert_array_equal(
+        gf.to_u64(absorbed), jgf.from_limbs(jperm.hash_varlen_padded(jpadded)))
+
+
+@pytest.mark.parametrize("rows,offset,width", [(1, 0, 10), (3, 7, 40),
+                                               (5, 1, 21)])
+def test_tip5_absorb_reads_row_views_of_a_wider_tensor(rows, offset, width):
+    """Rows at a stride above their k * 10 words, from any word offset: the
+    twin on the view equals JAX's sponge of the rows."""
+    x = RNG.integers(0, P, size=(rows, 2 * RATE - 1), dtype=np.uint64)
+    padded = tperm.pad_for_varlen(_to_port(x))
+    wide = torch.zeros((rows, offset + 2 * RATE + width), dtype=torch.int64)
+    view = wide[:, offset:offset + 2 * RATE]
+    view.copy_(padded)
+    assert view.stride(0) > view.shape[1] and view.stride(1) == 1
+    got = tip5_cuda.tip5_absorb(view, *tperm.tip5_tables("cpu"))
+    np.testing.assert_array_equal(gf.to_u64(got), jperm.hash_varlen(x))
+
+
+@pytest.mark.parametrize("shape,transposed", [
+    ((2 * RATE,), False), ((2, 3, RATE), False), ((0, RATE), False),
+    ((3, 2 * RATE), True),  # a view whose words are not contiguous
+])
+def test_hash_varlen_padded_keeps_the_leading_dims(shape, transposed):
+    x = RNG.integers(0, P, size=shape, dtype=np.uint64)
+    padded = _to_port(x)
+    if transposed:
+        padded = padded.t().contiguous().t()
+        assert padded.stride(-1) != 1
+    got = tperm.hash_varlen_padded(padded)
+    assert got.shape == shape[:-1] + (5,)
+    if x.size:
+        want = jgf.from_limbs(jperm.hash_varlen_padded(jgf.to_limbs(x)))
+        np.testing.assert_array_equal(gf.to_u64(got), want)
+
+
+@pytest.mark.parametrize("bad", ["width", "dtype", "stride", "dim", "rc",
+                                 "lut"])
+def test_tip5_absorb_rejects_bad_input(bad):
+    padded = _to_port(RNG.integers(0, P, size=(4, 2 * RATE), dtype=np.uint64))
+    rc, lut = tperm.tip5_tables("cpu")
+    if bad == "width":
+        padded = padded[:, :2 * RATE - 1].contiguous()
+    elif bad == "dtype":
+        padded = padded.to(torch.int32)
+    elif bad == "stride":
+        padded = torch.cat([padded, padded], 1)[:, ::2]
+    elif bad == "dim":
+        padded = padded.reshape(2, 2, 2 * RATE)
+    elif bad == "rc":
+        rc = rc[:79]
+    else:
+        lut = lut.to(torch.int64)
+    with pytest.raises(ValueError):
+        tip5_cuda.tip5_absorb(padded, rc, lut)
 
 
 def test_tip5_permute_wrapper_on_cpu_is_the_plain_twin():

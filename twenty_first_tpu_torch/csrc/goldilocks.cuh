@@ -240,4 +240,12 @@ __device__ __forceinline__ uint64_t mul_pow2_lazy(uint64_t x, int e) {
   return sub_lazy(reduce128_lazy_cc(0, x << r), (x >> (64 - r)) << 32);
 }
 
+// cp.async of one u64 word from device memory into shared memory: the copy
+// holds no register while it is in flight.
+__device__ __forceinline__ void cp_async8(uint64_t* smem, const uint64_t* g) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(addr),
+               "l"(g));
+}
+
 }  // namespace gl

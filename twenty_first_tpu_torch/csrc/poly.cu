@@ -275,14 +275,6 @@ __device__ __forceinline__ uint64_t thread_inverse(uint64_t t, bool& zero) {
   return inv_t;
 }
 
-// cp.async of one u64 word from device memory into shared memory: the copy
-// holds no register while it is in flight.
-__device__ __forceinline__ void cp_async8(uint64_t* smem, const uint64_t* g) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(addr),
-               "l"(g));
-}
-
 // out[r, segment s]: each element's inverse, reading x once (thread k
 // holds elements k, k + 256, ..., of the segment, copied into shared
 // memory, its running products in registers; a missing element is 1);
@@ -301,7 +293,7 @@ __global__ void __launch_bounds__(kInvThreads, kInvMinBlocks)
     for (int e = 0; e < kInvPerThread; ++e) {
       const int i = e * kInvThreads + threadIdx.x;
       if (i < left) {
-        cp_async8(&sv[i], x + base + i);
+        gl::cp_async8(&sv[i], x + base + i);
       } else {
         sv[i] = 1;
       }

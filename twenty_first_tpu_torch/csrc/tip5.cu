@@ -6,6 +6,11 @@
 //     _permutation_kernel (:102) and of permutation_dense (:383), which
 //     ops/tip5_batch.py launches through it. tip5_permute_kernel<kTrace>
 //     gives tip5/permutation.py::trace (:204).
+//   * K1's absorb mode, tip5_permute_kernel<kPermute> with a row stride
+//     and a chunk count (an overload, so K1's plain instantiation keeps its
+//     code and registers), <- the absorb loop of
+//     twenty_first_tpu/tip5/permutation.py::hash_varlen_padded (:252), the
+//     whole sponge in one launch: see "The sponge" below.
 //   * K2, the Merkle tree <- permute_packed_multi (:302) /
 //     _make_dense_multi_kernel (:262), with the pairing glue of
 //     ops/tip5_packed.py (pair_packed :99, _packed_chain :132). Two kernels:
@@ -34,6 +39,21 @@
 //     Montgomery reduction of a 64-bit word. The bytes looked up are those
 //     of the canonical Montgomery form.
 //
+// The sponge (K1's absorb mode): a thread owns one row's state in
+// registers from the all-zero VariableLength state, overwrites words 0..9
+// with each of the row's k chunks in turn and permutes, and writes the
+// row's 5-word digest at the end: no state goes through device memory and
+// the host launches once for all k absorbs. Its bound is K1's, one
+// permutation's issue rate; it reads 80 bytes a permutation (the chunk,
+// at the row's stride, with 64-bit offsets), too few for bandwidth to
+// bind, but a load's latency (about 1 us) would stall each absorb. So the
+// chunks go through a two-slot ring in shared memory: chunk c + 1 is
+// copied with cp.async while chunk c is permuted, holding no register in
+// flight. Each thread lives for all k permutations, so a launch is as
+// long as its busiest SM's waves of resident blocks: a block is one warp,
+// the finest grain, so the rows spread over the SMs as evenly as their
+// count allows (16 blocks an SM, as many warps as K1 holds).
+//
 // K2's tree: a block that reduces several levels in shared memory halves
 // its working threads at every level, so most of its life one warp or less
 // works. Each level whose parents fill the card's resident threads runs
@@ -52,6 +72,9 @@ constexpr int kRate = 10;
 constexpr int kDigest = 5;
 constexpr int kMaxThreads = 256;  // the fused tail's largest block
 constexpr int kRowThreads = 128;  // K1 and the level kernel
+// K1's absorb mode: a warp a block, 16 blocks an SM (K1's 128 registers)
+constexpr int kAbsorbThreads = 32;
+constexpr int kAbsorbBlocksPerSm = 16;
 
 // SHA-256("Tip5") as little-endian 16-bit chunks (tip5/constants.py)
 __device__ __forceinline__ double mds_col(int k) {
@@ -229,6 +252,55 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
+// K1's absorb mode (an overload of the kernel above, instantiated at
+// kPermute only): row r's digest of the sponge over its `chunks` chunks of
+// kRate words, row r starting at in + r * stride. The chunks go through a
+// two-slot ring in shared memory, word-major ([slot][word][thread], so a
+// warp's copies and reads fall in distinct banks): the copy of chunk c + 1
+// is in flight while chunk c is permuted. A slot is written again only
+// after the permutation that read it, which waits on those reads.
+template <int kMode>
+__global__ void __launch_bounds__(kAbsorbThreads, kAbsorbBlocksPerSm)
+    tip5_permute_kernel(const uint64_t* __restrict__ in,
+                        uint64_t* __restrict__ out, int64_t rows,
+                        int64_t stride, int64_t chunks, const uint64_t* rc_g,
+                        const uint8_t* lut_g) {
+  static_assert(kMode == kPermute, "the absorb mode is K1's");
+  __shared__ double2 rc[kRounds * kState];
+  __shared__ uint8_t lut[256];
+  __shared__ uint64_t ring[2][kRate][kAbsorbThreads];
+  load_tables(rc, lut, rc_g, lut_g);
+  __syncthreads();
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (row >= rows) return;
+  const int t = threadIdx.x;
+  const uint64_t* src = in + row * stride;
+  auto fetch = [&](int64_t c) {
+#pragma unroll
+    for (int i = 0; i < kRate; ++i) {
+      gl::cp_async8(&ring[c & 1][i][t], src + c * kRate + i);
+    }
+  };
+  uint64_t s[kState];
+#pragma unroll
+  for (int i = 0; i < kState; ++i) s[i] = 0;
+  if (chunks > 0) fetch(0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#pragma unroll 1
+  for (int64_t c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) fetch(c + 1);
+    // every group but the newest (chunk c + 1's) has landed
+    asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 1;\n" :::
+                     "memory");
+#pragma unroll
+    for (int i = 0; i < kRate; ++i) s[i] = ring[c & 1][i][t];
+    permute(s, rc, lut);
+  }
+#pragma unroll
+  for (int w = 0; w < kDigest; ++w) out[row * kDigest + w] = s[w];
+}
+
 // K2's fused tail: a block of T threads reduces `levels` Merkle levels.
 //   leaf mode: T leaf states (rows, 16) -> permute -> T digests -> `levels`
 //              pair levels -> T >> levels digests;
@@ -305,6 +377,23 @@ extern "C" int tf_tip5_permute(const void* in, void* out, long long rows,
   return launch_rows<kPermute>(in, out, rows, rc, lut, stream);
 }
 
+// The sponge over `chunks` chunks of each row (K1's absorb mode): out
+// (rows, 5) digests, row r of in at r * stride.
+extern "C" int tf_tip5_absorb(const void* in, void* out, long long rows,
+                              long long stride, long long chunks,
+                              const void* rc, const void* lut, void* stream) {
+  if (rows > 0) {
+    const long long blocks = (rows + kAbsorbThreads - 1) / kAbsorbThreads;
+    tip5_permute_kernel<kPermute>
+        <<<static_cast<unsigned>(blocks), kAbsorbThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
+            rows, stride, chunks, static_cast<const uint64_t*>(rc),
+            static_cast<const uint8_t*>(lut));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out: (rows, 6, 16), see tip5_permute_kernel's trace mode
 extern "C" int tf_tip5_trace(const void* in, void* out, long long rows,
                              const void* rc, const void* lut, void* stream) {
@@ -340,18 +429,37 @@ extern "C" int tf_merkle_commit(const void* in, void* out, long long blocks,
 
 // The block size and resident blocks per SM of a kernel on the current
 // device: 0 K1, 1 its trace mode, 2 the level kernel (all at their fixed
-// block size), 3 the fused tail at `threads`.
+// block size), 3 the fused tail at `threads`, 4 K1's absorb mode (at its
+// fixed block size).
 extern "C" int tf_tip5_occupancy(int kernel, int threads, int* block,
                                  int* blocks_per_sm) {
+  using Rows = void (*)(const uint64_t*, uint64_t*, int64_t, const uint64_t*,
+                        const uint8_t*);
+  using Absorb = void (*)(const uint64_t*, uint64_t*, int64_t, int64_t,
+                          int64_t, const uint64_t*, const uint8_t*);
   const void* fn = nullptr;
   int size = kRowThreads;
   switch (kernel) {
-    case 0: fn = reinterpret_cast<const void*>(tip5_permute_kernel<kPermute>); break;
-    case 1: fn = reinterpret_cast<const void*>(tip5_permute_kernel<kTrace>); break;
-    case 2: fn = reinterpret_cast<const void*>(tip5_permute_kernel<kPair>); break;
+    case 0:
+      fn = reinterpret_cast<const void*>(
+          static_cast<Rows>(tip5_permute_kernel<kPermute>));
+      break;
+    case 1:
+      fn = reinterpret_cast<const void*>(
+          static_cast<Rows>(tip5_permute_kernel<kTrace>));
+      break;
+    case 2:
+      fn = reinterpret_cast<const void*>(
+          static_cast<Rows>(tip5_permute_kernel<kPair>));
+      break;
     case 3:
       fn = reinterpret_cast<const void*>(merkle_commit_kernel);
       size = threads;
+      break;
+    case 4:
+      fn = reinterpret_cast<const void*>(
+          static_cast<Absorb>(tip5_permute_kernel<kPermute>));
+      size = kAbsorbThreads;
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,7 +5,9 @@ The counterpart of ``twenty_first_tpu/ops/tip5_pallas.py``:
 * K1 ``tip5_permute`` (replaces ``permute_packed`` / ``_dense_kernel``):
   (rows, 16) states -> permuted states, one thread per state; its trace
   mode ``tip5_trace`` (a compile-time variant of the same kernel) writes
-  the (rows, 6, 16) round states of ``tip5/permutation.py::trace``;
+  the (rows, 6, 16) round states of ``tip5/permutation.py::trace``; its
+  absorb mode ``tip5_absorb`` (an overload of the kernel) is the whole
+  sponge of ``hash_varlen_padded`` in one launch, a thread per row;
 * K2, the Merkle tree (replaces ``permute_packed_multi`` /
   ``_make_dense_multi_kernel`` and the ``tip5_packed`` pairing glue), two
   launches: ``merkle_level`` reduces one level at full width, a thread per
@@ -14,7 +16,8 @@ The counterpart of ``twenty_first_tpu/ops/tip5_pallas.py``:
   ``ops/tip5_commit.py`` plans them from ``resident_threads``.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
-twin. Each wrapper counts its launches in ``<wrapper>.launches``.
+twin. Each wrapper counts its launches in ``<wrapper>.launches``; the
+absorb mode's launches are K1's, counted in ``tip5_permute.launches``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import functools
 import torch
 
 from .. import _build
-from ..tip5.constants import DIGEST_LENGTH, NUM_ROUNDS, STATE_SIZE
+from ..tip5.constants import DIGEST_LENGTH, NUM_ROUNDS, RATE, STATE_SIZE
 from ..tip5.permutation import (fixed_length_state, permutation_plain,
                                 trace_plain)
 
@@ -34,7 +37,7 @@ from ..tip5.permutation import (fixed_length_state, permutation_plain,
 MAX_THREADS = 256
 #: ``tf_tip5_occupancy``'s kernel numbers (csrc/tip5.cu)
 OCCUPANCY_KERNEL = {"tip5_permute": 0, "tip5_trace": 1, "merkle_level": 2,
-                    "merkle_commit": 3}
+                    "merkle_commit": 3, "tip5_absorb": 4}
 
 
 def _check_tables(rc, lut, device):
@@ -155,6 +158,49 @@ def tip5_trace(states, rc, lut):
 
 
 tip5_trace.launches = 0
+
+
+def tip5_absorb_plain(padded, rc, lut):
+    """Plain twin of ``tip5_absorb``: absorb chunk by chunk (overwrite the
+    rate, permute), starting from the all-zero VariableLength state."""
+    state = torch.zeros(padded.shape[:-1] + (STATE_SIZE,),
+                        dtype=padded.dtype, device=padded.device)
+    for start in range(0, padded.shape[-1], RATE):
+        state = torch.cat([padded[..., start:start + RATE],
+                           state[..., RATE:]], dim=-1)
+        state = permutation_plain(state, rc, lut)
+    return state[..., :DIGEST_LENGTH]
+
+
+def tip5_absorb(padded, rc, lut):
+    """(rows, k * 10) int64 padded inputs -> (rows, 5) digests: each row's
+    k chunks absorbed in turn from the all-zero VariableLength state (K1's
+    absorb mode: one launch, a thread per row, its state in registers).
+    Rows may lie at any stride; the words of a row must be contiguous."""
+    if (padded.dtype != torch.int64 or padded.dim() != 2
+            or padded.shape[1] % RATE):
+        raise ValueError(f"padded inputs must be a (rows, k * {RATE}) int64 "
+                         f"tensor, got {tuple(padded.shape)} {padded.dtype}")
+    if padded.numel() and padded.stride(1) != 1:
+        raise ValueError("the words of a padded row must be contiguous")
+    _check_tables(rc, lut, padded.device)
+    if padded.device.type == "cpu":
+        return tip5_absorb_plain(padded, rc, lut)
+    _require_cuda(padded)
+    rows = padded.shape[0]
+    out = torch.empty((rows, DIGEST_LENGTH), dtype=padded.dtype,
+                      device=padded.device)
+    if rows == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(padded.device):
+        err = lib.tf_tip5_absorb(
+            padded.data_ptr(), out.data_ptr(), rows, padded.stride(0),
+            padded.shape[1] // RATE, rc.data_ptr(), lut.data_ptr(),
+            _build.stream_of(padded))
+        _build.check(err, "tip5_absorb")
+    tip5_permute.launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

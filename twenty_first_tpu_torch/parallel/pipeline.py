@@ -28,7 +28,7 @@ do the bit reversals in its addressing, so no pass reorders a block.
 ``make_dist_lde_commit`` and ``dist_lde_commit_values`` are the variant
 over a mesh (``parallel/mesh.py``): the distributed NTT of one vector in
 its Z layout (``dist_ntt``: K3, one all-to-all), each rank's rows hashed
-by the variable-length sponge (K1, one launch per absorb), and the
+by the variable-length sponge (K1's absorb mode, one launch), and the
 distributed Merkle root over the n2 leafs (``dist_merkle``: K2, one
 all-gather). Leaf k2 is the hash of X[k2::n2], the stride-n2 slice of the
 natural-order codeword, not of a natural-order row.

@@ -1,7 +1,8 @@
 """What the Tip5 kernels issue per permutation and how many warps of each
-the card holds: K1 (``tip5_permute``), its trace mode, K2 (the Merkle
-tree's two kernels: the full-width level and the fused tail) and K9
-(``tip5_permute_mma``, the MDS on the integer tensor cores).
+the card holds: K1 (``tip5_permute``), its trace mode, its absorb mode
+(``tip5_absorb``), K2 (the Merkle tree's two kernels: the full-width level
+and the fused tail) and K9 (``tip5_permute_mma``, the MDS on the integer
+tensor cores).
 
 For each kernel it reads, from the build:
 
@@ -49,9 +50,12 @@ from . import alu_probe
 from .timing import cuda_ms, require_card, sm_clock_mhz
 
 #: the kernels by a regular expression on their mangled names, with the
-#: block size of their launch
+#: block size of their launch; K1 and its absorb mode are one template at
+#: kPermute, told apart by their parameters (rows, then the rc table; rows,
+#: stride and chunks)
 KERNELS = {
-    "tip5_permute": (r"tip5_permute_kernelIL[bi]0E", 128),
+    "tip5_permute": (r"tip5_permute_kernelIL[bi]0EE+vPKmPmlS", 128),
+    "tip5_absorb": (r"tip5_permute_kernelIL[bi]0EE+vPKmPmlll", 32),
     "tip5_trace": (r"tip5_permute_kernelIL[bi]1E", 128),
     "merkle_level": (r"tip5_permute_kernelILi2E", 128),
     "merkle_commit": (r"merkle_commit_kernel", 256),

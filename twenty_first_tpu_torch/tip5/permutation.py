@@ -15,8 +15,9 @@ The counterpart of ``twenty_first_tpu/tip5/permutation.py``. States are
 ``permutation_plain`` is that arithmetic in plain torch, on any device: the
 plain twin of the CUDA kernel (``ops/tip5_cuda.py``). ``permutation`` sends
 a CUDA tensor to the kernel and a CPU tensor to the twin; so do
-``permutation_batch``, ``trace`` (the kernel's trace mode) and the sponge
-entry points, which launch the kernel once per absorbed chunk. The
+``permutation_batch``, ``trace`` (the kernel's trace mode),
+``hash_varlen_padded`` (its absorb mode: one launch for every chunk of
+every row) and ``hash_varlen_ragged`` (one launch per absorb step). The
 ``*_values``, ``hash_varlen`` and ``hash_varlen_ragged`` entry points take
 and return host uint64 arrays and run on ``device``, the card by default.
 """
@@ -211,19 +212,23 @@ def pad_for_varlen(x):
 def hash_varlen_padded(padded, *, tables=None, plain: bool = False):
     """Variable-length hash of already padded equal-length inputs
     (..., k * RATE) -> (..., 5): absorb chunk by chunk (overwrite the rate,
-    permute), starting from the all-zero VariableLength state. Counts the
-    chunks absorbed in ``hash_varlen_padded.absorbs``."""
+    permute), starting from the all-zero VariableLength state; on a CUDA
+    tensor one launch of K1's absorb mode (``tip5_cuda.tip5_absorb``) for
+    all the chunks of all the rows, read in place at the rows' stride.
+    Counts the chunks absorbed in ``hash_varlen_padded.absorbs``."""
+    from ..ops import tip5_cuda
+
     with span("sponge"):
-        tables = tables if tables is not None else tip5_tables(padded.device)
-        state = torch.zeros(padded.shape[:-1] + (STATE_SIZE,),
-                            dtype=padded.dtype, device=padded.device)
-        starts = range(0, padded.shape[-1], RATE)
-        for start in starts:
-            state = torch.cat([padded[..., start:start + RATE],
-                               state[..., RATE:]], dim=-1)
-            state = permutation(state, tables=tables, plain=plain)
-        _sponge.absorbs += len(starts)
-        return state[..., :DIGEST_LENGTH]
+        rc, lut = tables if tables is not None else tip5_tables(padded.device)
+        absorb = (tip5_cuda.tip5_absorb_plain if plain
+                  else tip5_cuda.tip5_absorb)
+        width = padded.shape[-1]
+        rows = padded.reshape(padded.shape[:-1].numel(), width)
+        if rows.stride(-1) != 1:  # e.g. a transposed view
+            rows = rows.contiguous()
+        digests = absorb(rows, rc, lut)
+        _sponge.absorbs += width // RATE
+        return digests.reshape(padded.shape[:-1] + (DIGEST_LENGTH,))
 
 
 hash_varlen_padded.absorbs = 0
@@ -260,8 +265,8 @@ def trace_values(states, device="cuda", plain: bool = False):
 def hash_varlen(values, device="cuda", plain: bool = False) -> np.ndarray:
     """Hash a batch of equal-length inputs: uint64 (..., L) -> (..., 5).
 
-    One K1 launch per absorbed chunk of RATE words (L = 16384 is 1639
-    launches of one state each)."""
+    One launch of K1's absorb mode for all the chunks (L = 16384 is 1639
+    absorbs a row)."""
     padded = pad_for_varlen(_to_device(values, device))
     return gf.to_u64(hash_varlen_padded(padded, plain=plain))
 
