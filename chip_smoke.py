@@ -2026,7 +2026,7 @@ def phase_host_layers(counters) -> dict:
                 native.tip5_merkle_root(leafs).tolist():
             raise AssertionError(f"Merkle root of {len(leafs)} leafs != the "
                                  "native core's")
-    # verify of MERKLE_QUERIES openings on the native core
+    # verify of MERKLE_QUERIES openings: the partial tree on the card
     tree = got["big"]
     proof = tree.inclusion_proof_for_leaf_indices(indices)
     t0 = time.perf_counter()

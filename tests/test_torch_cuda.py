@@ -493,6 +493,37 @@ def test_authentication_structure_from_leafs_on_the_card(cuda):
     assert proof.verify(tree.root())
 
 
+
+@pytest.mark.parametrize("height,count", [(1, 1), (6, 9), (17, 80)])
+def test_partial_tree_fills_on_the_card_a_k2_launch_a_level(cuda, height,
+                                                            count):
+    """verify, try_verify and into_authentication_paths on the card: one
+    K2 launch a level of the partial tree, the same verdicts, causes and
+    paths as the plain twin on the card and the JAX package."""
+    from twenty_first_tpu.util_types import merkle_tree as jmt
+    from twenty_first_tpu_torch.util_types import merkle_tree as tmt
+
+    leafs = _rand((1 << height, 5))
+    indices = [int(i) for i in RNG.integers(0, 1 << height, count)]
+    tree = tmt.MerkleTree.new(gf.from_u64(leafs).to(cuda))
+    proof = tree.inclusion_proof_for_leaf_indices(indices + indices[:1])
+    before = tip5_cuda.merkle_level.launches
+    assert proof.verify(tree.root())
+    assert tip5_cuda.merkle_level.launches == before + height
+    paths = proof.into_authentication_paths()
+    assert paths == proof.into_authentication_paths(plain=True)
+    jtree = jmt.MerkleTree.new(leafs)
+    jpaths = jtree.inclusion_proof_for_leaf_indices(
+        indices + indices[:1]).into_authentication_paths()
+    assert [[_vals(d) for d in p] for p in paths] == \
+        [[_vals(d) for d in p] for p in jpaths]
+    bad = tmt.MerkleTreeInclusionProof(
+        height, proof.indexed_leafs, proof.authentication_structure[:-1])
+    for kw in ({}, {"plain": True}):
+        with pytest.raises(tmt.MerkleTreeError, match="length mismatch"):
+            bad.try_verify(tree.root(), **kw)
+
+
 def _k2_launches():
     return tip5_cuda.merkle_level.launches + tip5_cuda.merkle_commit.launches
 

@@ -144,7 +144,8 @@ def test_jax_tree_carries_in_through_its_node_array():
     assert _norm(tree.authentication_structure(indices)) == \
         _norm(jtree.authentication_structure(indices))
     proof = tree.inclusion_proof_for_leaf_indices(indices)
-    assert proof.verify(tmt.MerkleTree(gf.from_u64(jtree.node_array())).root())
+    assert proof.verify(tmt.MerkleTree(gf.from_u64(jtree.node_array())).root(),
+                        device="cpu")
     with pytest.raises(terrors.MerkleTreeError):
         tmt.MerkleTree(jtree.node_array()[:6], device="cpu")
 
@@ -219,11 +220,11 @@ def test_verify_and_try_verify_match_jax(name):
     def case(m):
         root, proof = _tampered(m, name)
         try:
-            proof.try_verify(root)
+            proof.try_verify(root, **m.kw)
             raised = None
         except m.Error as e:
             raised = str(e)
-        return [proof.verify(root), raised, proof.is_trivial(),
+        return [proof.verify(root, **m.kw), raised, proof.is_trivial(),
                 proof.leaf_indices()]
 
     want, got = _both(case)
@@ -234,7 +235,7 @@ def test_verify_and_try_verify_match_jax(name):
 def test_into_authentication_paths_match_jax():
     def case(m):
         _, proof = _tampered(m, "none")
-        return proof.into_authentication_paths()
+        return proof.into_authentication_paths(**m.kw)
 
     want, got = _both(case)
     assert got == want and len(got) == 5
@@ -417,7 +418,7 @@ def _parity_auth_paths(expect, h):
 def _parity_duplicate_leafs(m):
     tree, _ = _tree_of_height(m, 3)
     proof = tree.inclusion_proof_for_leaf_indices([2, 2, 5])
-    assert proof.verify(tree.root())
+    assert proof.verify(tree.root(), **m.kw)
     return proof.authentication_structure
 
 
@@ -427,9 +428,9 @@ def _parity_incorrect_height(m):
     bad = m.mt.MerkleTreeInclusionProof(
         tree_height=4, indexed_leafs=proof.indexed_leafs,
         authentication_structure=proof.authentication_structure)
-    verdicts = [bad.verify(tree.root())]
+    verdicts = [bad.verify(tree.root(), **m.kw)]
     bad.tree_height = 2
-    verdicts.append(bad.verify(tree.root()))
+    verdicts.append(bad.verify(tree.root(), **m.kw))
     assert verdicts == [False, False]
 
 
@@ -437,7 +438,7 @@ def _parity_all_leafs(m):
     tree, _ = _tree_of_height(m, 3)
     proof = tree.inclusion_proof_for_leaf_indices(list(range(8)))
     assert proof.authentication_structure == []
-    assert proof.verify(tree.root())
+    assert proof.verify(tree.root(), **m.kw)
 
 
 def _parity_removed_leafs(m):
@@ -446,7 +447,7 @@ def _parity_removed_leafs(m):
     pruned = m.mt.MerkleTreeInclusionProof(
         tree_height=proof.tree_height, indexed_leafs=proof.indexed_leafs[:1],
         authentication_structure=proof.authentication_structure)
-    assert not pruned.verify(tree.root())
+    assert not pruned.verify(tree.root(), **m.kw)
 
 
 def _parity_items_not_in_set(m):
@@ -458,13 +459,13 @@ def _parity_items_not_in_set(m):
                         m.Tip5.hash_varlen([m.bfe(999)])),
                        proof.indexed_leafs[1]],
         authentication_structure=proof.authentication_structure)
-    assert not forged.verify(tree.root())
+    assert not forged.verify(tree.root(), **m.kw)
 
 
 def _parity_partial_nodes(m):
     tree, _ = _tree_of_height(m, 3)
     partial = m.mt.PartialMerkleTree.from_proof(
-        tree.inclusion_proof_for_leaf_indices([0, 2]))
+        tree.inclusion_proof_for_leaf_indices([0, 2]), **m.kw)
     assert sorted(partial.nodes) == [1, 2, 3, 4, 5, 8, 9, 10, 11]
     return partial.nodes
 
@@ -473,14 +474,15 @@ def _parity_partial_bad(present, message):
     def case(m):
         dummy = {i: m.Digest([i, 0, 0, 0, 0]) for i in present}
         with pytest.raises(m.Error, match=message):
-            m.mt.PartialMerkleTree(3, [0, 2], dummy).fill()
+            m.mt.PartialMerkleTree(3, [0, 2], dummy, **m.kw).fill()
     return case
 
 
 def _parity_manual_partial(m):
     tree, _ = _tree_of_height(m, 3)
     partial = m.mt.PartialMerkleTree(3, [0, 2], {i: tree.node(i) for i in
-                                                 (3, 8, 9, 10, 11)})
+                                                 (3, 8, 9, 10, 11)},
+                                      **m.kw)
     partial.fill()
     assert partial.root() == tree.root()
     return partial.nodes
@@ -489,7 +491,7 @@ def _parity_manual_partial(m):
 def _parity_into_paths(m):
     tree, _ = _tree_of_height(m, 3)
     paths = tree.inclusion_proof_for_leaf_indices([0, 2]) \
-        .into_authentication_paths()
+        .into_authentication_paths(**m.kw)
     assert paths[0] == [tree.node(9), tree.node(5), tree.node(3)]
     assert paths[1] == [tree.node(11), tree.node(4), tree.node(3)]
     return paths
@@ -499,7 +501,7 @@ def _parity_each_leaf(m):
     tree, leafs = _tree_of_height(m, 3)
     for i, leaf in enumerate(leafs):
         proof = tree.inclusion_proof_for_leaf_indices([i])
-        assert proof.verify(tree.root())
+        assert proof.verify(tree.root(), **m.kw)
         assert proof.indexed_leafs == [(i, leaf)]
     return tree.root()
 

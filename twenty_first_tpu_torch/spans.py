@@ -6,8 +6,9 @@ switch, the spans show whenever a caller profiles. One span is opened per
 call of a layer's function, never per iteration of a loop inside it
 (entering ``record_function`` costs ~15 us, gating it ~0.5 us); a loop's
 iterations are counted on its function instead (say
-``hash_varlen_padded.absorbs``), as the kernel wrappers count their
-``.launches``.
+``hash_varlen_padded.absorbs``, the chunks absorbed, or
+``PartialMerkleTree.fill.levels``, the levels hashed), as the kernel
+wrappers count their ``.launches``.
 
 The spans, outermost first:
 
@@ -20,7 +21,11 @@ The spans, outermost first:
 - ``tft.sponge``: ``tip5/permutation.py::hash_varlen_padded``, every
   absorb;
 - ``tft.tree``: ``ops/tip5_commit.py::reduce_layers`` and
-  ``util_types/merkle_tree.py::MerkleTree.new``.
+  ``util_types/merkle_tree.py::MerkleTree.new``;
+- ``tft.open``: ``util_types/merkle_tree.py::MerkleTree.
+  inclusion_proof_for_leaf_indices``, the opening's one gather and copy;
+- ``tft.verify``: ``util_types/merkle_tree.py::PartialMerkleTree.fill``,
+  every level of a verification's partial tree.
 """
 
 from __future__ import annotations

@@ -18,16 +18,20 @@ from ..math.b_field_element import BFieldElement, bfe, P
 
 
 class Digest:
-    __slots__ = ("_values",)
+    """Five base-field elements, held as their canonical values (python
+    ints): a proof holds hundreds of Digests, and ints cost neither an
+    object each nor the garbage collector's attention."""
+
+    __slots__ = ("_words",)
 
     LEN = 5
     BYTES = 5 * 8
 
     def __init__(self, values: Iterable):
-        vals = tuple(bfe(v) for v in values)
-        if len(vals) != Digest.LEN:
+        words = tuple(bfe(v).value() for v in values)
+        if len(words) != Digest.LEN:
             raise TryFromDigestError(f"digest needs {Digest.LEN} elements")
-        self._values = vals
+        self._words = words
 
     # -- constructors -------------------------------------------------------
 
@@ -90,24 +94,32 @@ class Digest:
     def from_array(cls, arr) -> "Digest":
         return cls(int(v) for v in np.asarray(arr, dtype=np.uint64))
 
+    @classmethod
+    def _of_canonical(cls, words) -> "Digest":
+        """Five canonical values (python ints) as a Digest, without the
+        checks of ``__init__``: for words the port's own kernels wrote."""
+        digest = cls.__new__(cls)
+        digest._words = tuple(words)
+        return digest
+
     # -- accessors ----------------------------------------------------------
 
     def values(self) -> tuple:
-        return self._values
+        return tuple(map(BFieldElement, self._words))
 
     def to_array(self) -> np.ndarray:
-        return np.array([v.value() for v in self._values], dtype=np.uint64)
+        return np.array(self._words, dtype=np.uint64)
 
     def to_bytes(self) -> bytes:
-        return b"".join(v.value().to_bytes(8, "little") for v in self._values)
+        return b"".join(v.to_bytes(8, "little") for v in self._words)
 
     def to_hex(self) -> str:
         return self.to_bytes().hex()
 
     def to_biguint(self) -> int:
         acc = 0
-        for v in reversed(self._values):
-            acc = acc * P + v.value()
+        for v in reversed(self._words):
+            acc = acc * P + v
         return acc
 
     def hash(self) -> "Digest":
@@ -119,18 +131,18 @@ class Digest:
     def reversed(self) -> "Digest":
         """Digest with its elements in reverse order — an involutive
         endomorphism (digest.rs:67-70)."""
-        return Digest(list(reversed(self._values)))
+        return Digest(list(reversed(self._words)))
 
     # -- comparisons --------------------------------------------------------
 
     def _ord_key(self):
-        return tuple(v.value() for v in reversed(self._values))
+        return tuple(reversed(self._words))
 
     def __eq__(self, other):
-        return isinstance(other, Digest) and self._values == other._values
+        return isinstance(other, Digest) and self._words == other._words
 
-    def __hash__(self):
-        return hash(self._values)
+    def __hash__(self):  # a BFieldElement hashes as its value
+        return hash(self._words)
 
     def __lt__(self, other):
         return self._ord_key() < other._ord_key()
@@ -145,13 +157,13 @@ class Digest:
         return self._ord_key() >= other._ord_key()
 
     def __repr__(self):
-        return f"Digest({', '.join(str(v.value()) for v in self._values)})"
+        return f"Digest({', '.join(map(str, self._words))})"
 
     def __str__(self):
-        return ",".join(str(v.value()) for v in self._values)
+        return ",".join(map(str, self._words))
 
     def __iter__(self):
-        return iter(self._values)
+        return iter(self.values())
 
 
 class DigestCorruptor:

@@ -243,7 +243,9 @@ _sponge = hash_varlen_padded
 
 
 def _to_device(values, device):
-    return gf.from_u64(np.asarray(values, dtype=np.uint64)).to(device)
+    """Host values as an int64 carrier on ``device``, in one copy."""
+    words = np.ascontiguousarray(values, dtype=np.uint64).view(np.int64)
+    return torch.from_numpy(words).to(device, copy=True)
 
 
 def permutation_values(states, device="cuda", plain: bool = False):

@@ -23,9 +23,15 @@ tail); ``authentication_structure_from_leafs`` keeps one level at a time
 and gathers the nodes it needs from each before the next. A CPU tensor
 takes the plain twins, as does ``plain=True`` on any device.
 
-The de-duplicated authentication structure's index math, inclusion proofs
-and partial-tree verification (merkle_tree.rs:449-931) are scalar host
-code over ``Tip5.hash_pair``, as in the JAX package.
+The de-duplicated authentication structure's index math
+(merkle_tree.rs:449-504) is host code, as in the JAX package. An inclusion
+proof gathers its leafs and its structure in one gather and one copy to
+the host. Its verification (merkle_tree.rs:779-931) fills the partial tree
+level by level on the verifier's device (``device="cuda"``, ``plain``, as
+above): the known nodes are one (k, 5) tensor, and each level's children
+are gathered from it and hashed by one K2 ``merkle_level`` launch (the
+JAX package hashes a node at a time on the host). Every error it raises,
+and when, is decided on the host from the node indices alone.
 """
 
 from __future__ import annotations
@@ -43,7 +49,6 @@ from ..ops import tip5_commit, tip5_cuda
 from ..spans import span
 from ..tip5.digest import Digest
 from ..tip5.permutation import tip5_tables
-from ..tip5.tip5 import Tip5
 
 ROOT_INDEX = 1
 
@@ -125,7 +130,7 @@ def _level(children, tables, plain: bool, out=None):
 
 def _digests(rows: torch.Tensor) -> list[Digest]:
     """(k, 5) carrier rows -> k Digests, in one copy to the host."""
-    return [Digest.from_array(row) for row in gf.to_u64(rows)]
+    return [Digest._of_canonical(row) for row in gf.to_u64(rows).tolist()]
 
 
 class MerkleTree:
@@ -228,11 +233,15 @@ class MerkleTree:
                              device=self._nodes.device)
         return _digests(self._nodes.index_select(0, index))
 
-    def indexed_leafs(self, indices) -> list[tuple[int, Digest]]:
+    def _check_leaf_indices(self, indices) -> list[int]:
         indices = list(indices)
         for i in indices:
             if i < 0 or i >= self.num_leafs():
                 raise MerkleTreeError(f"invalid leaf index {i}")
+        return indices
+
+    def indexed_leafs(self, indices) -> list[tuple[int, Digest]]:
+        indices = self._check_leaf_indices(indices)
         leafs = self._gather([self.num_leafs() + i for i in indices])
         return list(zip(indices, leafs))
 
@@ -301,11 +310,18 @@ class MerkleTree:
     def inclusion_proof_for_leaf_indices(
         self, indices
     ) -> "MerkleTreeInclusionProof":
-        return MerkleTreeInclusionProof(
-            tree_height=self.height(),
-            indexed_leafs=self.indexed_leafs(indices),
-            authentication_structure=self.authentication_structure(indices),
-        )
+        """The leafs at ``indices`` and their authentication structure,
+        gathered together in one gather and one copy to the host."""
+        with span("open"):
+            indices = self._check_leaf_indices(indices)
+            n = self.num_leafs()
+            structure = self.authentication_structure_node_indices(n, indices)
+            found = self._gather([n + i for i in indices] + structure)
+            return MerkleTreeInclusionProof(
+                tree_height=self.height(),
+                indexed_leafs=list(zip(indices, found[:len(indices)])),
+                authentication_structure=found[len(indices):],
+            )
 
     def __eq__(self, other):
         return (isinstance(other, MerkleTree)
@@ -329,44 +345,58 @@ class MerkleTreeInclusionProof:
     def is_trivial(self) -> bool:
         return not self.indexed_leafs and not self.authentication_structure
 
-    def verify(self, expected_root: Digest) -> bool:
+    def verify(self, expected_root: Digest, device="cuda",
+               plain: bool = False) -> bool:
+        """Whether the proof's leafs are in the tree of ``expected_root``:
+        the partial tree filled on ``device``."""
         if self.is_trivial():
             return True
         try:
-            tree = PartialMerkleTree.from_proof(self)
+            tree = PartialMerkleTree.from_proof(self, device, plain)
             return tree.root() == expected_root
         except MerkleTreeError:
             return False
 
-    def try_verify(self, expected_root: Digest) -> None:
+    def try_verify(self, expected_root: Digest, device="cuda",
+                   plain: bool = False) -> None:
         """Like verify, but raising a typed error with the failure cause
         (merkle_tree.rs:736-745)."""
         if self.is_trivial():
             return
-        tree = PartialMerkleTree.from_proof(self)  # raises MerkleTreeError
+        # raises MerkleTreeError
+        tree = PartialMerkleTree.from_proof(self, device, plain)
         if tree.root() != expected_root:
             raise MerkleTreeError("root mismatch")
 
-    def into_authentication_paths(self) -> list[list[Digest]]:
+    def into_authentication_paths(self, device="cuda",
+                                  plain: bool = False) -> list[list[Digest]]:
         """Decompress into one authentication path per indicated leaf
         (merkle_tree.rs:773-776, :861-887)."""
-        tree = PartialMerkleTree.from_proof(self)
+        tree = PartialMerkleTree.from_proof(self, device, plain)
         return [
             tree.authentication_path_for_index(i) for i in tree.leaf_indices
         ]
 
 
 class PartialMerkleTree:
-    """Helper for verifying inclusion proofs (merkle_tree.rs:779-931)."""
+    """Helper for verifying inclusion proofs (merkle_tree.rs:779-931).
+
+    ``nodes`` maps node indices to the known Digests. ``fill`` works out
+    the parents on ``device`` (K2, or its plain twin on a CPU device or
+    with ``plain=True``) into one (k, 5) tensor; ``root`` reads one row of
+    it, and ``nodes`` brings all of it to the host on first use."""
 
     def __init__(self, tree_height: int, leaf_indices: list[int],
-                 nodes: dict[int, Digest]):
+                 nodes: dict[int, Digest], device="cuda", plain: bool = False):
         self.tree_height = tree_height
         self.leaf_indices = leaf_indices
-        self.nodes = nodes
+        self.device, self.plain = device, plain
+        self._nodes = nodes
+        self._filled = None  # after fill: (node tensor, node index -> row)
 
     @classmethod
-    def from_proof(cls, proof: MerkleTreeInclusionProof) -> "PartialMerkleTree":
+    def from_proof(cls, proof: MerkleTreeInclusionProof, device="cuda",
+                   plain: bool = False) -> "PartialMerkleTree":
         leaf_indices = proof.leaf_indices()
         if proof.tree_height > 62:
             raise MerkleTreeError("tree too high")
@@ -385,40 +415,88 @@ class PartialMerkleTree:
                 nodes[node_index] = leaf_digest
             elif nodes[node_index] != leaf_digest:
                 raise MerkleTreeError("repeated leaf digest mismatch")
-        tree = cls(proof.tree_height, leaf_indices, nodes)
+        tree = cls(proof.tree_height, leaf_indices, nodes, device, plain)
         tree.fill()
         return tree
+
+    @property
+    def nodes(self) -> dict[int, Digest]:
+        """Every known node, the filled ones brought to the host in one
+        copy on first use."""
+        if self._filled is not None:
+            tensor, rows = self._filled
+            self._filled = None
+            host = gf.to_u64(tensor).tolist()
+            for i, r in rows.items():
+                if i not in self._nodes:
+                    self._nodes[i] = Digest._of_canonical(host[r])
+        return self._nodes
 
     def num_leafs(self) -> int:
         return 1 << self.tree_height
 
     def root(self) -> Digest:
-        if ROOT_INDEX not in self.nodes:
-            raise MerkleTreeError("root not found")
-        return self.nodes[ROOT_INDEX]
+        if ROOT_INDEX in self._nodes:
+            return self._nodes[ROOT_INDEX]
+        if self._filled is not None and ROOT_INDEX in self._filled[1]:
+            tensor, rows = self._filled
+            row = rows[ROOT_INDEX]
+            return _digests(tensor[row: row + 1])[0]
+        raise MerkleTreeError("root not found")
 
     def node(self, index: int) -> Digest:
-        if index not in self.nodes:
+        nodes = self.nodes
+        if index not in nodes:
             raise MerkleTreeError(f"missing node index {index}")
-        return self.nodes[index]
+        return nodes[index]
 
     def fill(self) -> None:
-        num_leafs = self.num_leafs()
-        parents = sorted({(i + num_leafs) // 2 for i in self.leaf_indices})
-        for _ in range(self.tree_height):
-            for parent in parents:
-                left = self.node(2 * parent)
-                right = self.node(2 * parent + 1)
-                digest = Tip5.hash_pair(left, right)
-                if parent in self.nodes:
-                    raise MerkleTreeError(f"spurious node index {parent}")
-                self.nodes[parent] = digest
-            next_parents = []
-            for p in parents:
-                q = p // 2
-                if not next_parents or next_parents[-1] != q:
-                    next_parents.append(q)
-            parents = next_parents
+        """Work out every parent on the leafs' paths, a level at a time
+        from the leafs up: the level's (left, right) children gathered from
+        the node tensor into one (2m, 5) tensor, reduced by one K2 launch
+        into the tensor's next m rows. The plan, with every missing or
+        spurious node it meets, is made on the host first, in the order of
+        the reference's node-at-a-time loop, so the same error is raised.
+        Counts the levels hashed in ``PartialMerkleTree.fill.levels``."""
+        with span("verify"):
+            num_leafs = self.num_leafs()
+            nodes = self.nodes
+            rows = {i: r for r, i in enumerate(nodes)}
+            known = len(rows)
+            parents = sorted({(i + num_leafs) // 2 for i in self.leaf_indices})
+            children, widths, row_of = [], [], rows.get
+            for _ in range(self.tree_height):
+                for parent in parents:
+                    left, right = row_of(2 * parent), row_of(2 * parent + 1)
+                    if left is None or right is None:
+                        child = 2 * parent + (left is not None)
+                        raise MerkleTreeError(f"missing node index {child}")
+                    if parent in rows:
+                        raise MerkleTreeError(f"spurious node index {parent}")
+                    rows[parent] = len(rows)
+                    children += (left, right)
+                if parents:
+                    widths.append(len(parents))
+                parents = sorted({p // 2 for p in parents})
+            if not widths:
+                return
+            # the known nodes, room for the parents and the gathers' row
+            # numbers, in one copy to the device
+            words = np.zeros(5 * len(rows) + len(children), dtype=np.uint64)
+            words[:5 * known] = [w for d in nodes.values()
+                                 for w in d._words]
+            words[5 * len(rows):] = children
+            flat = gf.from_u64(words).to(self.device)
+            tensor = flat[:5 * len(rows)].view(len(rows), Digest.LEN)
+            gathers = flat[5 * len(rows):]
+            tables = tip5_tables(tensor.device)
+            at, out = 0, known
+            for m in widths:
+                level = tensor.index_select(0, gathers[at: at + 2 * m])
+                _level(level, tables, self.plain, out=tensor[out: out + m])
+                at, out = at + 2 * m, out + m
+            _fill.levels += len(widths)
+            self._filled = (tensor, rows)
 
     def authentication_path_for_index(self, leaf_index: int) -> list[Digest]:
         num_leafs = self.num_leafs()
@@ -428,3 +506,9 @@ class PartialMerkleTree:
             path.append(self.node(node_index ^ 1))
             node_index //= 2
         return path
+
+
+PartialMerkleTree.fill.levels = 0
+# the counter's function by a name of its own: a caller that rebinds
+# ``fill`` to a wrapper of it still counts here
+_fill = PartialMerkleTree.fill
