@@ -25,7 +25,9 @@ set to 0 just before it and read just after:
 * the standalone Tip5 batch path: permutation_batch at 2^16 and 2^22
   states, the T4/T5 entry points, trace, hash_varlen and
   hash_varlen_ragged (K1 and its trace and absorb modes); K1's absorb
-  mode at the table commit's (2^17, 16,390) against its plain twin;
+  mode at the table commit's (2^17, 16,390), a thread a row, and at the
+  opening's (80, 16,390), in its lane mode, each against its plain twin,
+  and the absorb mode's two designs timed side by side across row counts;
 * the tensor-core Tip5 and the packed commit's entry points
   (ops/tip5_mxu.py, ops/tip5_packed.py): K9, the permutation with its MDS
   as u8 mma on the integer tensor cores, against its twin and K1 at 2^16
@@ -224,6 +226,10 @@ MIXED_INPUTS, MIXED_MAX_LENGTH = 256, 120
 # table_commit.r17_l16384): 2^17 rows of 16,384 words, padded to 16,390
 ABSORB_SHAPE = (1 << 17, 16390)
 ABSORB_SEED = 20
+# its lane mode at the opening's shape (port_bench's
+# table_open.r17_l16384_q80 verifies ~80 revealed rows of that width)
+LANE_SHAPE = (80, 16390)
+LANE_SEED = 22
 # the authenticated-structures path: leaf indices opened (the order of a
 # STARK's query count), the MMR's leafs (3 * 2^21 - 1: 22 peaks) and the
 # leafs its successor proof appends, the small trees timed beside the big one
@@ -1038,27 +1044,47 @@ def phase_tip5_batch(rng, tables) -> dict:
                                    TRACE_STATES)}}
 
 
-def phase_k1_absorb(tables) -> dict:
-    """K1's absorb mode at the table commit's shape: one launch for every
-    chunk of every row of a (2^17, 16,390) table (rows past 2^31 bytes,
-    edge words first in every row), equal to the plain twin
-    ``tip5_absorb_plain`` on the same table."""
+def absorb_table(shape, seed):
+    """A random int64 table of ``shape`` on the card with edge words first
+    in every row."""
     from twenty_first_tpu_torch.math import gf
-    from twenty_first_tpu_torch.ops import tip5_cuda
 
-    rows, width = ABSORB_SHAPE
     g = torch.Generator(device="cuda")
-    g.manual_seed(ABSORB_SEED)
-    table = torch.randint(0, (1 << 63) - 1, ABSORB_SHAPE, generator=g,
+    g.manual_seed(seed)
+    table = torch.randint(0, (1 << 63) - 1, shape, generator=g,
                           device="cuda", dtype=torch.int64)
     edges = gf.from_u64(np.array([0, 1, P - 1, (1 << 32) - 1, 1 << 32,
                                   (1 << 32) + 1], dtype=np.uint64)).cuda()
     table[:, :edges.shape[0]] = edges
-    before = tip5_cuda.tip5_permute.launches
+    return table
+
+
+def absorb_counted(table, tables) -> tuple:
+    """``tip5_absorb`` over ``table`` and how far it moved K1's launches
+    and the lane mode's."""
+    from twenty_first_tpu_torch.ops import tip5_cuda
+
+    before = (tip5_cuda.tip5_permute.launches,
+              tip5_cuda.tip5_absorb.lane_launches)
     got = tip5_cuda.tip5_absorb(table, *tables)
     torch.cuda.synchronize()
-    if tip5_cuda.tip5_permute.launches != before + 1:
-        raise AssertionError("K1's absorb mode took more than one launch")
+    return got, (tip5_cuda.tip5_permute.launches - before[0],
+                 tip5_cuda.tip5_absorb.lane_launches - before[1])
+
+
+def phase_k1_absorb(tables) -> dict:
+    """K1's absorb mode at the table commit's shape: one launch for every
+    chunk of every row of a (2^17, 16,390) table (rows past 2^31 bytes,
+    edge words first in every row), a thread a row, equal to the plain
+    twin ``tip5_absorb_plain`` on the same table."""
+    from twenty_first_tpu_torch.ops import tip5_cuda
+
+    rows, width = ABSORB_SHAPE
+    table = absorb_table(ABSORB_SHAPE, ABSORB_SEED)
+    got, moved = absorb_counted(table, tables)
+    if moved != (1, 0):
+        raise AssertionError(f"K1's absorb mode at the table's shape moved "
+                             f"(launches, lane launches) by {moved}")
     err = require_equal("K1 absorb at the table's shape", got,
                         tip5_cuda.tip5_absorb_plain(table, *tables))
     ms = cuda_ms(lambda: tip5_cuda.tip5_absorb(table, *tables), 3)
@@ -1067,7 +1093,39 @@ def phase_k1_absorb(tables) -> dict:
     torch.cuda.empty_cache()  # 17 GB, before the phases that fill the card
     emit("k1_absorb", shape=[rows, width], twin_equal=True, ms=ms,
          ns_per_perm=ms * 1e6 / perms)
-    return {"max_abs_err": err, "ms": ms, "shape": [rows, width]}
+    return {"max_abs_err": err, "ms": ms, "shape": [rows, width],
+            "perms": perms, "launches": 1, "lane_launches": 0}
+
+
+def phase_k1_absorb_lanes(tables) -> dict:
+    """K1's absorb mode at the opening's shape, which takes its lane mode:
+    one launch over a (80, 16,390) table (edge words first in every row),
+    counted as K1's and as a lane-mode launch, equal to the plain twin on
+    the same table; timed beside the thread-a-row design on the same
+    table, and both designs across ``tip5_probe.ABSORB_SWEEP`` (equal
+    digests) beside the design ``lane_mode`` picks."""
+    from twenty_first_tpu_torch.ops import tip5_cuda
+    from twenty_first_tpu_torch.probes import tip5_probe
+
+    rows, width = LANE_SHAPE
+    table = absorb_table(LANE_SHAPE, LANE_SEED)
+    got, moved = absorb_counted(table, tables)
+    if moved != (1, 1):
+        raise AssertionError(f"K1's absorb mode at the opening's shape moved "
+                             f"(launches, lane launches) by {moved}")
+    err = require_equal("K1 lane mode at the opening's shape", got,
+                        tip5_cuda.tip5_absorb_plain(table, *tables))
+    ms = cuda_ms(lambda: tip5_cuda.tip5_absorb(table, *tables), 5)
+    threads_ms = cuda_ms(tip5_probe.absorb_design(table, tables, "threads"),
+                         5)
+    perms = rows * (width // 10)
+    del table, got
+    sweep = tip5_probe.absorb_sweep(tables)
+    emit("k1_absorb_lanes", shape=[rows, width], twin_equal=True, ms=ms,
+         threads_ms=threads_ms, ns_per_perm=ms * 1e6 / perms, sweep=sweep)
+    return {"max_abs_err": err, "ms": ms, "threads_ms": threads_ms,
+            "shape": [rows, width], "perms": perms, "launches": 1,
+            "lane_launches": 1, "sweep": sweep}
 
 
 def slice_leaf_states():
@@ -2893,6 +2951,7 @@ def main() -> None:
     merkle = phase_merkle_objects(counters, slice_root, k2["tail_ms"])
     batch = phase_tip5_batch(rng, tables)
     batch["absorb_mode"] = phase_k1_absorb(tables)
+    batch["absorb_lane_mode"] = phase_k1_absorb_lanes(tables)
     stats = tip5_probe.kernel_stats()
     mxu = phase_tip5_mxu(tables, stats)
     from twenty_first_tpu_torch.ops import poly_cuda
@@ -2911,6 +2970,10 @@ def main() -> None:
     rate = probe_alu["instructions_per_s"]
     phase_tip5_counts(rate, stats)
     k1.update(tip5_probe.counts(stats, "tip5_permute", N * E, rate))
+    for mode, name in (("absorb_mode", "tip5_absorb"),
+                       ("absorb_lane_mode", "tip5_absorb_lanes")):
+        batch[mode].update(tip5_probe.counts(stats, name,
+                                             batch[mode]["perms"], rate))
     mxu.update(tip5_probe.counts(stats, "tip5_permute_mma", N * E, rate))
     log_n1, log_n2 = ntt.four_step_split((N * E).bit_length() - 1)
     k3_stats = pass_probe.kernel_stats(log_n2, 1 << log_n1)
@@ -2947,7 +3010,8 @@ def main() -> None:
                               "distributed": dist["tip5_permute"],
                               "scrambled": scr["tip5_permute"]},
          **k1, **NO_LIBRARY, "trace_mode": batch["trace"],
-         "absorb_mode": batch["absorb_mode"]},
+         "absorb_mode": batch["absorb_mode"],
+         "absorb_lane_mode": batch["absorb_lane_mode"]},
         {"name": "merkle_commit", "route": "cuda",
          "source": "twenty_first_tpu_torch/csrc/tip5.cu",
          "replaces": f"{pallas}:262 (T2)",

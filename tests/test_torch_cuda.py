@@ -294,26 +294,91 @@ def test_k1_absorb_matches_jax_at_the_tables_rows(cuda, rows):
     np.testing.assert_array_equal(gf.to_u64(got), jperm.hash_varlen(x))
 
 
-def test_k1_absorb_reads_rows_in_place(cuda):
-    """Rows read at their stride: a row view of a wider tensor (a stride
-    above k * 10 words, starting 8 bytes off a 16-byte boundary), and rows
-    that sit beyond 2^31 bytes (64-bit offsets)."""
-    x, want = _varlen_rows(19)
+def _lane_rows(device) -> int:
+    """The fewest rows that K1's absorb mode runs a thread a row on this
+    card."""
+    resident = tip5_cuda.resident_threads(device, "tip5_absorb")
+    rows = resident // tip5_cuda.LANE_ROWS_DIVISOR
+    assert tip5_cuda.lane_mode(rows - 1, resident)
+    assert not tip5_cuda.lane_mode(rows, resident)
+    return rows
+
+
+@functools.lru_cache(maxsize=None)
+def _threshold_table(rows: int):
+    """``rows`` + 1 inputs of 19 words (two chunks) and JAX's digests."""
+    x = np.random.default_rng(rows).integers(0, P, size=(rows + 1, 19),
+                                             dtype=np.uint64)
+    return x, jperm.hash_varlen(x)
+
+
+def _absorb_counted(padded, rc, lut):
+    """``tip5_absorb`` and how far it moved (K1's launches, lane-mode
+    launches)."""
+    before = (tip5_cuda.tip5_permute.launches,
+              tip5_cuda.tip5_absorb.lane_launches)
+    got = tip5_cuda.tip5_absorb(padded, rc, lut)
+    return got, (tip5_cuda.tip5_permute.launches - before[0],
+                 tip5_cuda.tip5_absorb.lane_launches - before[1])
+
+
+@pytest.mark.parametrize("rows", [1, 3, 80])
+@pytest.mark.parametrize("length", [0, 1, 9, 10, 11, 19, 20, 16384])
+def test_k1_lane_mode_matches_jax(cuda, length, rows):
+    """K1's lane mode (16 lanes a row) at the opening's ~80 rows and
+    fewer: one launch, counted both as K1's and as a lane-mode launch."""
+    x, want = _varlen_rows(length)
+    padded = tperm.pad_for_varlen(gf.from_u64(x[:rows]).to(cuda))
+    got, moved = _absorb_counted(padded, *tip5_tables(cuda))
+    assert moved == (1, 1)
+    np.testing.assert_array_equal(gf.to_u64(got), want[:rows])
+
+
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+def test_k1_absorb_modes_meet_at_the_lane_threshold(cuda, offset):
+    """One table at the lane mode's last row count (lanes) and at the next
+    two (a thread a row): both modes give JAX's digests."""
+    threshold = _lane_rows(cuda)
+    x, want = _threshold_table(threshold)
+    rows = threshold + offset
+    padded = tperm.pad_for_varlen(gf.from_u64(x[:rows]).to(cuda))
+    got, moved = _absorb_counted(padded, *tip5_tables(cuda))
+    assert moved == (1, int(offset < 0))
+    np.testing.assert_array_equal(gf.to_u64(got), want[:rows])
+
+
+@pytest.mark.parametrize("mode", ["lanes", "threads"])
+def test_k1_absorb_reads_rows_in_place(cuda, mode):
+    """Rows read at their stride by each design of the absorb mode (129
+    rows take the lane mode; the lane mode's threshold, a thread a row): a
+    row view of a wider tensor (a stride above k * 10 words, starting 8
+    bytes off a 16-byte boundary), and rows that sit beyond 2^32 bytes
+    (64-bit offsets)."""
+    if mode == "lanes":
+        rows, (x, want) = 129, _varlen_rows(19)
+    else:
+        rows = _lane_rows(cuda)
+        x, want = _threshold_table(rows)
     rc, lut = tip5_tables(cuda)
-    padded = tperm.pad_for_varlen(gf.from_u64(x[:129]).to(cuda))
-    wide = torch.zeros((129, 37), dtype=torch.int64, device=cuda)
+    padded = tperm.pad_for_varlen(gf.from_u64(x[:rows]).to(cuda))
+    wide = torch.zeros((rows, 37), dtype=torch.int64, device=cuda)
     view = wide[:, 5:25]
     view.copy_(padded)
     assert view.stride(0) == 37 and view.data_ptr() % 16 == 8
-    np.testing.assert_array_equal(
-        gf.to_u64(tip5_cuda.tip5_absorb(view, rc, lut)), want[:129])
-    stride = (1 << 28) + 3  # row 2 starts past 2^32 bytes
-    far = torch.zeros(2 * stride + 20, dtype=torch.int64, device=cuda)
-    rows = far.as_strided((3, 20), (stride, 1))
-    rows.copy_(padded[:3])
-    assert rows.stride(0) * 2 * 8 > 1 << 32
-    np.testing.assert_array_equal(
-        gf.to_u64(tip5_cuda.tip5_absorb(rows, rc, lut)), want[:3])
+    got, moved = _absorb_counted(view, rc, lut)
+    assert moved == (1, int(mode == "lanes"))
+    np.testing.assert_array_equal(gf.to_u64(got), want[:rows])
+    del wide, view
+    far_rows = 3 if mode == "lanes" else rows
+    stride = (1 << 29) // (far_rows - 1) + 3  # the last row past 2^32 bytes
+    far = torch.zeros((far_rows - 1) * stride + 20, dtype=torch.int64,
+                      device=cuda)
+    spread = far.as_strided((far_rows, 20), (stride, 1))
+    spread.copy_(padded[:far_rows])
+    assert (far_rows - 1) * stride * 8 > 1 << 32
+    got, moved = _absorb_counted(spread, rc, lut)
+    assert moved == (1, int(mode == "lanes"))
+    np.testing.assert_array_equal(gf.to_u64(got), want[:far_rows])
 
 
 @pytest.mark.parametrize("variant", pass_probe.VARIANTS)

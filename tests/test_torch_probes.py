@@ -310,6 +310,26 @@ def test_issue_bound_and_counts():
     assert got["issue_bound_ms"] == pytest.approx(1.0)
 
 
+def test_k1_overloads_are_told_apart_by_their_parameters():
+    """K1, its absorb mode and the lane mode are one template at kPermute:
+    each KERNELS tag picks its own overload by the mangled parameters, and
+    a permutation of the lane mode is issued by 16 threads."""
+    import re
+
+    mangled = {"tip5_permute": "_Z19tip5_permute_kernelILi0EEvPKmPmlS1_PKh",
+               "tip5_absorb": "_Z19tip5_permute_kernelILi0EEvPKmPmlllS1_PKh",
+               "tip5_absorb_lanes":
+                   "_Z19tip5_permute_kernelILi0EEvPKmPmillS1_PKh"}
+    for name, symbol in mangled.items():
+        assert [k for k, (tag, _) in tip5_probe.KERNELS.items()
+                if re.search(tag, symbol)] == [name]
+    stats = {"tip5_absorb_lanes": {"sass_per_perm": 100,
+                                   "states_per_warp": 2}}
+    assert tip5_probe.issue_bound_ms(
+        stats, {"tip5_absorb_lanes": 10}, 1e6) == pytest.approx(
+            16 * 100 * 10 / 1e6 * 1e3)
+
+
 def test_tree_summary_splits_levels_from_the_tail():
     launches = [{"launch": "level", "levels": 1, "rows_in": 8, "ms": 2.0},
                 {"launch": "fused", "levels": 2, "rows_in": 4, "ms": 0.5},

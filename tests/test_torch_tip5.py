@@ -149,6 +149,39 @@ def test_tip5_absorb_reads_row_views_of_a_wider_tensor(rows, offset, width):
     np.testing.assert_array_equal(gf.to_u64(got), jperm.hash_varlen(x))
 
 
+#: the thread-a-row absorb mode's resident threads on an H100: 132 SMs x
+#: 16 one-warp blocks
+H100_RESIDENT = 132 * 16 * 32
+#: the fewest rows that take K1's absorb mode a thread a row on an H100
+H100_LANE_ROWS = 13516
+
+
+@pytest.mark.parametrize("rows,lanes", [
+    (0, False), (1, True), (80, True), (H100_LANE_ROWS - 1, True),
+    (H100_LANE_ROWS, False), (H100_LANE_ROWS + 1, False), (1 << 17, False)])
+def test_lane_mode_is_chosen_by_rows_and_resident_threads(rows, lanes):
+    """K1's absorb mode spreads a row over 16 lanes below the measured
+    share of the card's resident threads, and keeps a thread a row from
+    there up (the table commit's 2^17 rows); without a card (0 resident
+    threads) nothing takes the lane mode."""
+    assert tip5_cuda.lane_mode(rows, H100_RESIDENT) is lanes
+    assert tip5_cuda.lane_mode(rows, 0) is False
+
+
+@pytest.mark.parametrize("rows", [1, 80])
+def test_tip5_absorb_on_a_cpu_tensor_counts_no_launch(rows):
+    """Row counts the lane mode takes on a card: a CPU tensor takes the
+    plain twin, and neither launch counter moves."""
+    x = RNG.integers(0, P, size=(rows, 2 * RATE - 1), dtype=np.uint64)
+    padded = tperm.pad_for_varlen(_to_port(x))
+    before = (tip5_cuda.tip5_permute.launches,
+              tip5_cuda.tip5_absorb.lane_launches)
+    got = tip5_cuda.tip5_absorb(padded, *tperm.tip5_tables("cpu"))
+    assert (tip5_cuda.tip5_permute.launches,
+            tip5_cuda.tip5_absorb.lane_launches) == before
+    np.testing.assert_array_equal(gf.to_u64(got), jperm.hash_varlen(x))
+
+
 @pytest.mark.parametrize("shape,transposed", [
     ((2 * RATE,), False), ((2, 3, RATE), False), ((0, RATE), False),
     ((3, 2 * RATE), True),  # a view whose words are not contiguous

@@ -1,11 +1,12 @@
 """A numpy model of the Tip5 kernels' arithmetic (csrc/tip5.cu), step for
 step on uint64 (wrapping) words: lazy products, the S-box's Montgomery
 conversions by shifts and adds, the MDS with the round constant folded into
-its half-sums. It is a model, not a twin: the plain twin's steps
-(tip5/permutation.py: _split_and_lookup, _pow7, _mds) stay the
-specification, and the tests hold each step of the model against them and
-the whole against the JAX package, on random words and on edge words, lazy
-ones (>= p) included.
+its half-sums, and K1's lane mode (a row's words across lanes, the MDS by
+shuffle steps, the capacity lazy between permutations). It is a model,
+not a twin: the plain twin's steps (tip5/permutation.py:
+_split_and_lookup, _pow7, _mds) stay the specification, and the tests
+hold each step of the model against them and the whole against the JAX
+package, on random words and on edge words, lazy ones (>= p) included.
 """
 
 import numpy as np
@@ -14,11 +15,12 @@ import pytest
 from twenty_first_tpu.tip5 import permutation as jperm
 from twenty_first_tpu_torch.math import gf
 from twenty_first_tpu_torch.tip5 import permutation as tperm
-from twenty_first_tpu_torch.tip5.constants import (LOOKUP_TABLE,
+from twenty_first_tpu_torch.tip5.constants import (DIGEST_LENGTH,
+                                                   LOOKUP_TABLE,
                                                    MDS_MATRIX_FIRST_COLUMN,
                                                    NUM_ROUNDS,
                                                    NUM_SPLIT_AND_LOOKUP,
-                                                   ROUND_CONSTANTS,
+                                                   RATE, ROUND_CONSTANTS,
                                                    STATE_SIZE)
 
 _U = np.uint64
@@ -88,12 +90,58 @@ def model_mds_add_rc(s, rc):
         for j in range(STATE_SIZE):
             acc_lo = acc_lo + _U(col[(i - j) % 16]) * lo[..., j]
             acc_hi = acc_hi + _U(col[(i - j) % 16]) * hi[..., j]
-        lo64 = acc_lo + (acc_hi << _S32)
-        q = (acc_hi >> _S32) + (lo64 < acc_lo).astype(np.uint64)
-        m = (q << _S32) - q
-        r = lo64 + m
-        out[..., i] = np.where(r < m, r + _EPS, r)
+        out[..., i] = model_combine(acc_lo, acc_hi)
     return out
+
+
+def model_combine(acc_lo, acc_hi):
+    """acc_lo + acc_hi * 2^32 (acc_hi below 2^54) as a lazy residue."""
+    lo64 = acc_lo + (acc_hi << _S32)
+    q = (acc_hi >> _S32) + (lo64 < acc_lo).astype(np.uint64)
+    m = (q << _S32) - q
+    r = lo64 + m
+    return np.where(r < m, r + _EPS, r)
+
+
+def model_mds_lanes(s, rc):
+    """The lane mode's MDS (mds_lanes): lane i sums col[k] * s[(i - k) mod
+    16] over the shuffle steps k in two chains a half (even and odd k), the
+    round constant at the start of chain 0; the chains added, one combine.
+    Asserts each chain's bound (below 2^53)."""
+    col = [int(c) for c in MDS_MATRIX_FIRST_COLUMN]
+    lanes = np.arange(STATE_SIZE)
+    lo, hi = s & _M32, s >> _S32
+    zero = np.zeros_like(s)
+    acc_lo = [zero + (rc & _M32), zero.copy()]
+    acc_hi = [zero + (rc >> _S32), zero.copy()]
+    for k in range(STATE_SIZE):
+        src = (lanes - k) % STATE_SIZE
+        acc_lo[k & 1] = acc_lo[k & 1] + _U(col[k]) * lo[..., src]
+        acc_hi[k & 1] = acc_hi[k & 1] + _U(col[k]) * hi[..., src]
+    assert all((a < _U(1 << 53)).all() for a in acc_lo + acc_hi)
+    return model_combine(acc_lo[0] + acc_lo[1], acc_hi[0] + acc_hi[1])
+
+
+def lane_sponge_model(padded):
+    """K1's lane mode on (rows, k * 10) padded words, lane i word i: every
+    lane computes both S-boxes (the lookup on zeros past lane 3) and keeps
+    its own, then model_mds_lanes; the capacity stays lazy from one
+    permutation to the next; the digest is made canonical at the end. x^7
+    is K1's representative here (the kernel's pow7_k9 gives another of the
+    same residue, test_torch_tip5_mxu.py's model), which every step takes."""
+    lanes = np.arange(STATE_SIZE)
+    s = np.zeros((padded.shape[0], STATE_SIZE), dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        for c in range(0, padded.shape[1], RATE):
+            s[:, :RATE] = padded[:, c:c + RATE]
+            for r in range(NUM_ROUNDS):
+                lookup = lanes < NUM_SPLIT_AND_LOOKUP
+                looked = model_sbox(np.where(lookup, s, _U(0)))
+                s = np.where(lookup, looked, model_pow7(s))
+                s = model_mds_lanes(s, ROUND_CONSTANTS[r * STATE_SIZE:
+                                                       (r + 1) * STATE_SIZE])
+    d = s[:, :DIGEST_LENGTH]
+    return np.where(d >= _P, d - _P, d)
 
 
 def permutation_model(states):
@@ -175,6 +223,30 @@ def test_mds_with_round_constants_matches_mds():
                                   words.tolist()], dtype=np.uint64))
     want = gf.to_u64(gf.add(tperm._mds(canon), gf.from_u64(rc)))
     assert [g % P for g in _ints(got)] == _ints(want)
+
+
+def test_lane_mds_is_the_kernels_mds():
+    """The lane mode's MDS, two chains a half over the shuffle steps, gives
+    the thread mode's words bit for bit, on lazy and edge words (the largest
+    halves included, where each chain stays below 2^53)."""
+    words = _words(16 * 200)[: 16 * 200].reshape(200, 16)
+    words[:len(EDGES)] = np.array(EDGES, dtype=np.uint64)[:, None]
+    words[len(EDGES)] = M - 1
+    for r in range(NUM_ROUNDS):
+        rc = ROUND_CONSTANTS[r * 16:(r + 1) * 16]
+        with np.errstate(over="ignore"):
+            np.testing.assert_array_equal(model_mds_lanes(words, rc),
+                                          model_mds_add_rc(words, rc))
+
+
+@pytest.mark.parametrize("length", [0, 1, 9, 10, 11, 19, 20, 64])
+def test_lane_sponge_model_matches_jax(length):
+    """The lane mode's sponge, the capacity lazy between permutations,
+    gives JAX's hash_varlen at every L mod 10."""
+    x = RNG.integers(0, P, size=(3, length), dtype=np.uint64)
+    x[0, :min(length, len(EDGES))] = [e % P for e in EDGES][:length]
+    np.testing.assert_array_equal(
+        lane_sponge_model(tperm.pad_for_varlen(x)), jperm.hash_varlen(x))
 
 
 def test_mds_half_sums_stay_exact():

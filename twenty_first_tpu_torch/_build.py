@@ -36,6 +36,8 @@ _SIGNATURES = {
     "tf_tip5_trace": (_VP, _VP, _LL, _VP, _VP, _VP),
     # in, out (rows, 5), rows, row stride, chunks, rc, lut, stream
     "tf_tip5_absorb": (_VP, _VP, _LL, _LL, _LL, _VP, _VP, _VP),
+    # the same in K1's lane mode
+    "tf_tip5_absorb_lanes": (_VP, _VP, _LL, _LL, _LL, _VP, _VP, _VP),
     # in, out, parents, leaf, rc, lut, stream
     "tf_merkle_level": (_VP, _VP, _LL, _I, _VP, _VP, _VP),
     # in, out, blocks, threads, leaf, levels, rc, lut, stream

@@ -8,7 +8,8 @@
 //     gives tip5/permutation.py::trace (:204).
 //   * K1's absorb mode, tip5_permute_kernel<kPermute> with a row stride
 //     and a chunk count (an overload, so K1's plain instantiation keeps its
-//     code and registers), <- the absorb loop of
+//     code and registers), and its lane mode (a third overload, the rows an
+//     int) <- the absorb loop of
 //     twenty_first_tpu/tip5/permutation.py::hash_varlen_padded (:252), the
 //     whole sponge in one launch: see "The sponge" below.
 //   * K2, the Merkle tree <- permute_packed_multi (:302) /
@@ -39,20 +40,32 @@
 //     Montgomery reduction of a 64-bit word. The bytes looked up are those
 //     of the canonical Montgomery form.
 //
-// The sponge (K1's absorb mode): a thread owns one row's state in
-// registers from the all-zero VariableLength state, overwrites words 0..9
-// with each of the row's k chunks in turn and permutes, and writes the
-// row's 5-word digest at the end: no state goes through device memory and
-// the host launches once for all k absorbs. Its bound is K1's, one
-// permutation's issue rate; it reads 80 bytes a permutation (the chunk,
-// at the row's stride, with 64-bit offsets), too few for bandwidth to
-// bind, but a load's latency (about 1 us) would stall each absorb. So the
-// chunks go through a two-slot ring in shared memory: chunk c + 1 is
-// copied with cp.async while chunk c is permuted, holding no register in
-// flight. Each thread lives for all k permutations, so a launch is as
-// long as its busiest SM's waves of resident blocks: a block is one warp,
-// the finest grain, so the rows spread over the SMs as evenly as their
-// count allows (16 blocks an SM, as many warps as K1 holds).
+// The sponge (K1's absorb mode): one row's state lives in registers from
+// the all-zero VariableLength state; words 0..9 are overwritten with each
+// of the row's k chunks in turn and permuted, and the row's 5-word digest
+// is written at the end: no state goes through device memory and the host
+// launches once for all k absorbs. It reads 80 bytes a permutation (the
+// chunk, at the row's stride, with 64-bit offsets), too few for bandwidth
+// to bind, but a load's latency (about 1 us) would stall each absorb, so
+// each design loads ahead. Two designs, one algorithm:
+//   * a thread a row: its bound is K1's, one permutation's issue rate. The
+//     chunks go through a two-slot ring in shared memory (chunk c + 1 is
+//     copied with cp.async while chunk c is permuted, holding no register
+//     in flight). Each thread lives for all k permutations, so a launch is
+//     as long as its busiest SM's waves of resident blocks: a block is one
+//     warp, the finest grain, so the rows spread over the SMs as evenly as
+//     their count allows (16 blocks an SM, as many warps as K1 holds). A
+//     launch of few rows takes one row's latency: a lone thread's 1,639
+//     dependent permutations of a 16,384-word row, 18.3 ms on an H100.
+//   * the lane mode, 16 lanes a row (lane i holds word i, two rows a
+//     warp): the S-box in every lane (both, each lane keeping its own), the
+//     MDS as 15 shuffle steps with the circulant's entries as immediates,
+//     the next chunks' words two ahead in registers. It issues about 1.6
+//     times the instructions a row but cuts a row's latency about 8 times.
+// ops/tip5_cuda.py::lane_mode picks the lane mode for launches of fewer
+// rows than a fifth of the threads that the thread-a-row design holds
+// resident on the card, where the two times cross on an H100 (PERF.md,
+// K1a).
 //
 // K2's tree: a block that reduces several levels in shared memory halves
 // its working threads at every level, so most of its life one warp or less
@@ -64,6 +77,8 @@
 // launch, a block pairing neighbours through shared memory.
 // ops/tip5_commit.py plans the launches from the row count and the
 // resident thread count.
+#include <climits>
+
 #include "tip5_body.cuh"
 
 namespace {
@@ -75,6 +90,9 @@ constexpr int kRowThreads = 128;  // K1 and the level kernel
 // K1's absorb mode: a warp a block, 16 blocks an SM (K1's 128 registers)
 constexpr int kAbsorbThreads = 32;
 constexpr int kAbsorbBlocksPerSm = 16;
+// K1's lane mode: kLanes lanes a row, a warp a block (two rows)
+constexpr int kLanes = 16;
+constexpr int kLaneThreads = 32;
 
 // SHA-256("Tip5") as little-endian 16-bit chunks (tip5/constants.py)
 __device__ __forceinline__ double mds_col(int k) {
@@ -301,6 +319,75 @@ __global__ void __launch_bounds__(kAbsorbThreads, kAbsorbBlocksPerSm)
   for (int w = 0; w < kDigest; ++w) out[row * kDigest + w] = s[w];
 }
 
+// s <- MDS(s) + rc across the lanes of a row (the lane mode): lane i's word
+// is rc + sum_k col[k] * s[(i - k) mod 16], the word of lane (i - k) mod 16
+// of its group read by a shuffle of width kLanes (col[k] is the same for
+// every lane: an immediate). Exact on 32-bit halves in 64-bit integer
+// sums, two chains a half: a half-sum is below 2^32 + 16 * 2^16 * 2^32 <
+// 2^53, which combine takes.
+__device__ __forceinline__ uint64_t mds_lanes(uint64_t s, int i, uint64_t rc) {
+  uint64_t lo[2] = {lo32(rc), 0}, hi[2] = {hi32(rc), 0};
+#pragma unroll
+  for (int k = 0; k < kState; ++k) {
+    const uint32_t c = static_cast<uint32_t>(mds_col(k));
+    const int from = (i - k) & (kLanes - 1);
+    const uint32_t l = k ? __shfl_sync(~0u, lo32(s), from, kLanes) : lo32(s);
+    const uint32_t h = k ? __shfl_sync(~0u, hi32(s), from, kLanes) : hi32(s);
+    lo[k & 1] += static_cast<uint64_t>(c) * l;
+    hi[k & 1] += static_cast<uint64_t>(c) * h;
+  }
+  return combine(lo[0] + lo[1], hi[0] + hi[1]);
+}
+
+// K1's lane mode (a third overload, instantiated at kPermute only): the
+// absorb mode's sponge with a row's state spread over kLanes lanes, lane i
+// holding word i, two rows a warp; row r's digest from in + r * stride.
+// Each round every lane runs both S-boxes and keeps its own (the byte
+// lookup in lanes 0..3, fed zeros elsewhere so the other lanes' table
+// reads are broadcasts; x^7 three products deep), so the two chains
+// interleave in one instruction stream; then mds_lanes. Lanes 0..9 take
+// the next chunk's word, loaded two chunks ahead into registers. The
+// capacity stays lazy from one permutation to the next (every step takes
+// any u64 residue); lanes 0..4 write the canonical digest. A group past the
+// last row runs on zeros beside its neighbour and writes nothing: the
+// shuffles take the whole warp. The rows are an int: the lane mode takes
+// fewer rows than the card holds threads (ops/tip5_cuda.py).
+template <int kMode>
+__global__ void __launch_bounds__(kLaneThreads)
+    tip5_permute_kernel(const uint64_t* __restrict__ in,
+                        uint64_t* __restrict__ out, int rows, int64_t stride,
+                        int64_t chunks, const uint64_t* rc_g,
+                        const uint8_t* lut_g) {
+  static_assert(kMode == kPermute, "the lane mode is K1's");
+  __shared__ uint64_t rc[kRounds * kState];
+  __shared__ uint8_t lut[256];
+  load_tables(rc, lut, rc_g, lut_g, [](uint64_t c) { return c; });
+  __syncthreads();
+  const int i = threadIdx.x % kLanes;  // the lane's state word
+  const int row = blockIdx.x * (kLaneThreads / kLanes) + threadIdx.x / kLanes;
+  const bool reads = row < rows && i < kRate;
+  const uint64_t* src = in + static_cast<int64_t>(row) * stride + i;
+  auto fetch = [&](int64_t c) {
+    return reads && c < chunks ? src[c * kRate] : 0;
+  };
+  uint64_t s = 0, next = fetch(0), after = fetch(1);
+#pragma unroll 1
+  for (int64_t c = 0; c < chunks; ++c) {
+    if (i < kRate) s = next;
+    next = after;
+    after = fetch(c + 2);
+#pragma unroll 1
+    for (int r = 0; r < kRounds; ++r) {
+      const uint64_t looked = sbox_lookup(i < kSbox ? s : 0, lut);
+      const uint64_t powered = pow7_k9(s);
+      s = mds_lanes(i < kSbox ? looked : powered, i, rc[r * kState + i]);
+    }
+  }
+  if (row < rows && i < kDigest) {
+    out[static_cast<int64_t>(row) * kDigest + i] = gl::canon(s);
+  }
+}
+
 // K2's fused tail: a block of T threads reduces `levels` Merkle levels.
 //   leaf mode: T leaf states (rows, 16) -> permute -> T digests -> `levels`
 //              pair levels -> T >> levels digests;
@@ -388,8 +475,27 @@ extern "C" int tf_tip5_absorb(const void* in, void* out, long long rows,
         <<<static_cast<unsigned>(blocks), kAbsorbThreads, 0,
            static_cast<cudaStream_t>(stream)>>>(
             static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
-            rows, stride, chunks, static_cast<const uint64_t*>(rc),
-            static_cast<const uint8_t*>(lut));
+            static_cast<int64_t>(rows), stride, chunks,
+            static_cast<const uint64_t*>(rc), static_cast<const uint8_t*>(lut));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same sponge in K1's lane mode (kLanes lanes a row); rows below 2^31.
+extern "C" int tf_tip5_absorb_lanes(const void* in, void* out, long long rows,
+                                    long long stride, long long chunks,
+                                    const void* rc, const void* lut,
+                                    void* stream) {
+  if (rows > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows > 0) {
+    constexpr int kRowsPerBlock = kLaneThreads / kLanes;
+    const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+    tip5_permute_kernel<kPermute>
+        <<<static_cast<unsigned>(blocks), kLaneThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
+            static_cast<int>(rows), stride, chunks,
+            static_cast<const uint64_t*>(rc), static_cast<const uint8_t*>(lut));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -429,14 +535,16 @@ extern "C" int tf_merkle_commit(const void* in, void* out, long long blocks,
 
 // The block size and resident blocks per SM of a kernel on the current
 // device: 0 K1, 1 its trace mode, 2 the level kernel (all at their fixed
-// block size), 3 the fused tail at `threads`, 4 K1's absorb mode (at its
-// fixed block size).
+// block size), 3 the fused tail at `threads`, 4 K1's absorb mode, 5 its
+// lane mode (each at its fixed block size).
 extern "C" int tf_tip5_occupancy(int kernel, int threads, int* block,
                                  int* blocks_per_sm) {
   using Rows = void (*)(const uint64_t*, uint64_t*, int64_t, const uint64_t*,
                         const uint8_t*);
   using Absorb = void (*)(const uint64_t*, uint64_t*, int64_t, int64_t,
                           int64_t, const uint64_t*, const uint8_t*);
+  using Lanes = void (*)(const uint64_t*, uint64_t*, int, int64_t, int64_t,
+                         const uint64_t*, const uint8_t*);
   const void* fn = nullptr;
   int size = kRowThreads;
   switch (kernel) {
@@ -460,6 +568,11 @@ extern "C" int tf_tip5_occupancy(int kernel, int threads, int* block,
       fn = reinterpret_cast<const void*>(
           static_cast<Absorb>(tip5_permute_kernel<kPermute>));
       size = kAbsorbThreads;
+      break;
+    case 5:
+      fn = reinterpret_cast<const void*>(
+          static_cast<Lanes>(tip5_permute_kernel<kPermute>));
+      size = kLaneThreads;
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,11 +1,12 @@
 // The Tip5 arithmetic of K1/K2 (tip5.cu): the S-box (the byte lookup on
 // the Montgomery form and x^7 on lazy residues), the fold of an exact MDS
 // sum into a lazy residue, the final canonicalisation and the block's
-// table loads. K9 (tip5_mma.cu) takes the Montgomery conversions and the
-// canonicalisation; its lookup, x^7 and table loads are its own. Each
+// table loads. K9 (tip5_mma.cu) takes the Montgomery conversions, the
+// canonicalisation and its x^7 three products deep (pow7_k9, which K1's
+// lane mode takes too); its lookup and table loads are its own. Each
 // translation unit gets its own copy (an anonymous namespace, every
-// function inlined), so moving them here changes no instruction of K1 or
-// K2.
+// function inlined), so moving them here changes no instruction of K1, K2
+// or K9.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,6 +28,49 @@ using gl::mul_red;
 __device__ __forceinline__ uint64_t pow7(uint64_t x) {
   const uint64_t x3 = mul_red(mul_red(x, x), x);
   return mul_red(mul_red(x3, x3), x);
+}
+
+// a * b for any u64, a lazy residue out: the four 32 x 32 -> 64 partial
+// products as wide multiplies, summed into (p3, p2, p1, p0), then
+// gl::sqr_red's one fix-up: V = (p1, p0) + p2 2^32 - (p2 + p3), which is
+// a * b mod p, lies in (-2^33, 2^65 - 2^32), so with r = V mod 2^64 and
+// d = carry - borrow in {-1, 0, 1}, r + d (2^32 - 1) cannot wrap.
+__device__ __forceinline__ uint64_t mul_wide(uint64_t a, uint64_t b) {
+  const uint64_t ll = static_cast<uint64_t>(lo32(a)) * lo32(b);
+  const uint64_t lh = static_cast<uint64_t>(lo32(a)) * hi32(b);
+  const uint64_t hl = static_cast<uint64_t>(hi32(a)) * lo32(b);
+  const uint64_t hh = static_cast<uint64_t>(hi32(a)) * hi32(b);
+  uint32_t r0, r1;
+  asm("{\n\t.reg .u32 p1, p2, p3, t1, q0, q1, c, b, s;\n\t"
+      "add.cc.u32 p1, %3, %4;\n\t"  // ll.hi + lh.lo
+      "addc.cc.u32 p2, %5, %8;\n\t"  // lh.hi + hh.lo
+      "addc.u32 p3, %9, 0;\n\t"
+      "add.cc.u32 p1, p1, %6;\n\t"  // + hl
+      "addc.cc.u32 p2, p2, %7;\n\t"
+      "addc.u32 p3, p3, 0;\n\t"
+      "add.cc.u32 t1, p1, p2;\n\t"  // (t1, p0) = (p1, p0) + p2 2^32, carry c
+      "addc.u32 c, 0, 0;\n\t"
+      "add.cc.u32 q0, p2, p3;\n\t"  // q = p2 + p3
+      "addc.u32 q1, 0, 0;\n\t"
+      "sub.cc.u32 %0, %2, q0;\n\t"  // r = (t1, p0) - q, borrow b
+      "subc.cc.u32 %1, t1, q1;\n\t"
+      "subc.u32 b, 0, 0;\n\t"
+      "add.u32 s, b, c;\n\t"  // d
+      "neg.s32 c, s;\n\t"  // r + d (2^32 - 1): add (d < 0 ? -1 : 0, -d)
+      "shr.s32 b, s, 31;\n\t"
+      "add.cc.u32 %0, %0, c;\n\t"
+      "addc.u32 %1, %1, b;\n\t}"
+      : "=r"(r0), "=r"(r1)
+      : "r"(lo32(ll)), "r"(hi32(ll)), "r"(lo32(lh)), "r"(hi32(lh)),
+        "r"(lo32(hl)), "r"(hi32(hl)), "r"(lo32(hh)), "r"(hi32(hh)));
+  return join(r0, r1);
+}
+
+// x^7 for any u64, a lazy residue out: x^2, then x^3 and x^4 side by side,
+// three products deep (pow7 above, K1's thread modes' and K2's, is four)
+__device__ __forceinline__ uint64_t pow7_k9(uint64_t x) {
+  const uint64_t x2 = gl::sqr_red(x);
+  return mul_wide(mul_wide(x2, x), gl::sqr_red(x2));
 }
 
 // x * 2^64 mod p, canonical, for any u64 x = x1 * 2^32 + x0: with

@@ -7,7 +7,9 @@ The counterpart of ``twenty_first_tpu/ops/tip5_pallas.py``:
   mode ``tip5_trace`` (a compile-time variant of the same kernel) writes
   the (rows, 6, 16) round states of ``tip5/permutation.py::trace``; its
   absorb mode ``tip5_absorb`` (an overload of the kernel) is the whole
-  sponge of ``hash_varlen_padded`` in one launch, a thread per row;
+  sponge of ``hash_varlen_padded`` in one launch, a thread per row, or, in
+  its lane mode (a third overload), 16 lanes a row for launches of too few
+  rows to fill the card (``lane_mode``);
 * K2, the Merkle tree (replaces ``permute_packed_multi`` /
   ``_make_dense_multi_kernel`` and the ``tip5_packed`` pairing glue), two
   launches: ``merkle_level`` reduces one level at full width, a thread per
@@ -17,7 +19,8 @@ The counterpart of ``twenty_first_tpu/ops/tip5_pallas.py``:
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 twin. Each wrapper counts its launches in ``<wrapper>.launches``; the
-absorb mode's launches are K1's, counted in ``tip5_permute.launches``.
+absorb mode's launches are K1's, counted in ``tip5_permute.launches``, and
+those in the lane mode also in ``tip5_absorb.lane_launches``.
 """
 
 from __future__ import annotations
@@ -37,7 +40,12 @@ from ..tip5.permutation import (fixed_length_state, permutation_plain,
 MAX_THREADS = 256
 #: ``tf_tip5_occupancy``'s kernel numbers (csrc/tip5.cu)
 OCCUPANCY_KERNEL = {"tip5_permute": 0, "tip5_trace": 1, "merkle_level": 2,
-                    "merkle_commit": 3, "tip5_absorb": 4}
+                    "merkle_commit": 3, "tip5_absorb": 4,
+                    "tip5_absorb_lanes": 5}
+#: K1's absorb mode takes its lane mode below the card's resident threads
+#: over this many rows (``lane_mode``): on an H100 the two modes' times at
+#: 16,390 words a row cross near 14,100 rows, 67,584 / 4.8 (PERF.md, K1a)
+LANE_ROWS_DIVISOR = 5
 
 
 def _check_tables(rc, lut, device):
@@ -85,20 +93,21 @@ def occupancy(kernel: str, device=None, threads: int = MAX_THREADS):
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_threads(device: torch.device) -> int:
-    block, blocks = occupancy("merkle_level", device)
+def _resident_threads(device: torch.device, kernel: str) -> int:
+    block, blocks = occupancy(kernel, device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return sms * blocks * block
 
 
-def resident_threads(device) -> int:
-    """Threads of K2's level kernel that the card holds at once: its SMs
-    (the device's properties) times the kernel's resident blocks per SM
-    times its block size. 0 for a CPU device, where the plain twins run."""
+def resident_threads(device, kernel: str = "merkle_level") -> int:
+    """Threads of one Tip5 kernel (K2's level kernel unless ``kernel``
+    names another) that the card holds at once: its SMs (the device's
+    properties) times the kernel's resident blocks per SM times its block
+    size. 0 for a CPU device, where the plain twins run."""
     device = torch.device(device)
     if device.type != "cuda":
         return 0
-    return _resident_threads(device)
+    return _resident_threads(device, kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -172,11 +181,28 @@ def tip5_absorb_plain(padded, rc, lut):
     return state[..., :DIGEST_LENGTH]
 
 
+def lane_mode(rows: int, resident: int) -> bool:
+    """Whether ``tip5_absorb`` runs ``rows`` rows in K1's lane mode (16
+    lanes a row) rather than a thread a row, on a card that holds
+    ``resident`` threads of the thread-a-row mode
+    (``resident_threads(device, "tip5_absorb")``; 0 without a card).
+
+    A thread a row issues the fewest instructions a row, but until its
+    warps fill the card's schedulers a launch takes one row's latency
+    whatever the count of rows (18.3 ms for a row of 16,384 words on an
+    H100); the lane mode takes an eighth of that latency and issues about
+    1.6 times the instructions a row, so its time grows with the rows from
+    about a thousand rows on. The times cross at about a fifth of the
+    resident threads (PERF.md, K1a)."""
+    return 0 < rows < resident // LANE_ROWS_DIVISOR
+
+
 def tip5_absorb(padded, rc, lut):
     """(rows, k * 10) int64 padded inputs -> (rows, 5) digests: each row's
     k chunks absorbed in turn from the all-zero VariableLength state (K1's
-    absorb mode: one launch, a thread per row, its state in registers).
-    Rows may lie at any stride; the words of a row must be contiguous."""
+    absorb mode: one launch, a row's state in registers, a thread's or, in
+    the lane mode, 16 lanes' (``lane_mode``)). Rows may lie at any stride;
+    the words of a row must be contiguous."""
     if (padded.dtype != torch.int64 or padded.dim() != 2
             or padded.shape[1] % RATE):
         raise ValueError(f"padded inputs must be a (rows, k * {RATE}) int64 "
@@ -193,14 +219,21 @@ def tip5_absorb(padded, rc, lut):
     if rows == 0:
         return out
     lib = _build.load()
+    lanes = lane_mode(rows, resident_threads(padded.device, "tip5_absorb"))
+    launch = lib.tf_tip5_absorb_lanes if lanes else lib.tf_tip5_absorb
     with torch.cuda.device(padded.device):
-        err = lib.tf_tip5_absorb(
+        err = launch(
             padded.data_ptr(), out.data_ptr(), rows, padded.stride(0),
             padded.shape[1] // RATE, rc.data_ptr(), lut.data_ptr(),
             _build.stream_of(padded))
         _build.check(err, "tip5_absorb")
     tip5_permute.launches += 1
+    if lanes:
+        tip5_absorb.lane_launches += 1
     return out
+
+
+tip5_absorb.lane_launches = 0
 
 
 # ---------------------------------------------------------------------------

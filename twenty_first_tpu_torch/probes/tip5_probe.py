@@ -1,8 +1,8 @@
 """What the Tip5 kernels issue per permutation and how many warps of each
 the card holds: K1 (``tip5_permute``), its trace mode, its absorb mode
-(``tip5_absorb``), K2 (the Merkle tree's two kernels: the full-width level
-and the fused tail) and K9 (``tip5_permute_mma``, the MDS on the integer
-tensor cores).
+(``tip5_absorb``) and that mode's lane mode (``tip5_absorb_lanes``), K2
+(the Merkle tree's two kernels: the full-width level and the fused tail)
+and K9 (``tip5_permute_mma``, the MDS on the integer tensor cores).
 
 For each kernel it reads, from the build:
 
@@ -13,9 +13,11 @@ For each kernel it reads, from the build:
 * SASS instructions per permutation by class (``CLASSES``): the round
   loop's body in ``cuobjdump -sass`` (the permutation keeps one round per
   loop iteration) times five, and how many of them are IMAD-family, IMAD
-  moves, IMMA (the tensor-core products) and shared-memory loads. Every
-  kernel's warp permutes 32 states (K9's as two tiles of 16), so a
-  thread's instructions are those of one permutation.
+  moves, IMMA (the tensor-core products) and shared-memory loads: a
+  thread's instructions for the one permutation it takes part in. A warp
+  permutes 32 states in every kernel (K9's as two tiles of 16) but the
+  lane mode, whose warp permutes two, 16 lanes a state
+  (``states_per_warp``).
 
 With a card it also times the kernels at the main path's shapes (device
 time, ``timing.cuda_ms``) and sets each beside its issue-bound time:
@@ -29,6 +31,11 @@ working threads every level.
 
     python -m twenty_first_tpu_torch.probes.tip5_probe
     python -m twenty_first_tpu_torch.probes.tip5_probe --library PATH.so
+    python -m twenty_first_tpu_torch.probes.tip5_probe --absorb-sweep
+
+``--absorb-sweep`` times only the two designs of K1's absorb mode, a
+thread a row and 16 lanes a row, side by side (``ABSORB_SWEEP``), beside
+the design that ``tip5_cuda.lane_mode`` picks.
 
 ``--library`` reads another build's SASS and report (for instance the
 parent commit's, built in its own checkout): registers, spills and SASS,
@@ -50,17 +57,20 @@ from . import alu_probe
 from .timing import cuda_ms, require_card, sm_clock_mhz
 
 #: the kernels by a regular expression on their mangled names, with the
-#: block size of their launch; K1 and its absorb mode are one template at
-#: kPermute, told apart by their parameters (rows, then the rc table; rows,
-#: stride and chunks)
+#: block size of their launch; K1, its absorb mode and the lane mode are
+#: one template at kPermute, told apart by their parameters (rows, then the
+#: rc table; rows, stride and chunks; the rows as an int)
 KERNELS = {
     "tip5_permute": (r"tip5_permute_kernelIL[bi]0EE+vPKmPmlS", 128),
     "tip5_absorb": (r"tip5_permute_kernelIL[bi]0EE+vPKmPmlll", 32),
+    "tip5_absorb_lanes": (r"tip5_permute_kernelIL[bi]0EE+vPKmPmill", 32),
     "tip5_trace": (r"tip5_permute_kernelIL[bi]1E", 128),
     "merkle_level": (r"tip5_permute_kernelILi2E", 128),
     "merkle_commit": (r"merkle_commit_kernel", 256),
     "tip5_permute_mma": (r"tip5_permute_mma_kernel", 128),
 }
+#: states a warp permutes where it is not 32
+STATES_PER_WARP = {"tip5_absorb_lanes": 2}
 #: SASS a permutation by class: all, IMAD-family, its moves, tensor-core
 #: products, shared-memory loads
 CLASSES = ("sass_per_perm", "imad_per_perm", "imad_mov_per_perm",
@@ -68,6 +78,15 @@ CLASSES = ("sass_per_perm", "imad_per_perm", "imad_mov_per_perm",
 #: the main path's leaf rows (W = 8, n = 2^20, expansion 4)
 LEAF_ROWS = 1 << 22
 TRACE_ROWS = 1 << 16
+#: the two designs of K1's absorb mode by their C entries (csrc/tip5.cu)
+ABSORB_DESIGNS = {"threads": "tf_tip5_absorb",
+                  "lanes": "tf_tip5_absorb_lanes"}
+#: where the two designs are timed side by side: words a row (the table
+#: commit's 16,384 padded, rows near the crossover; the distributed LDE
+#: commit's 4,096 at 2^24) by row counts
+ABSORB_SWEEP = {16390: (8192, 10240, 12288, 13516, 14336, 16384),
+                4100: (80, 1024, 2048, 4096, 8192, 12288, 13516, 16384,
+                       32768)}
 
 _ENTRY = re.compile(r"(?:Compiling entry function|Function properties for)"
                     r" '?([\w$.]+)'?")
@@ -111,7 +130,8 @@ def kernel_stats(library: Path | None = None) -> dict[str, dict]:
             continue
         res = report[mangled]
         st = alu_probe.sass_per_perm(sass, tag, NUM_ROUNDS)
-        stats[name] = {"threads": threads, **res, **st, **sass_classes(st)}
+        stats[name] = {"threads": threads, **res, **st, **sass_classes(st),
+                       "states_per_warp": STATES_PER_WARP.get(name, 32)}
         if library is None:
             block, blocks = _occupancy(name, threads)
             stats[name]["resident_warps_per_sm"] = blocks * block // 32
@@ -160,14 +180,17 @@ def issue_rate() -> float:
 
 def issue_bound_ms(stats: dict, perms: dict[str, int], rate) -> float | str:
     """Issue-bound ms of ``perms[name]`` permutations in each named kernel:
-    their SASS instructions over ``rate`` instructions per second (what K5
-    issues on ``mul_lazy`` chains in the same run); "not measured" without
-    a SASS count or a rate."""
+    their SASS instructions (a thread's for a permutation, times the
+    threads that share one: 32 / ``states_per_warp``) over ``rate``
+    instructions per second (what K5 issues on ``mul_lazy`` chains in the
+    same run); "not measured" without a SASS count or a rate."""
     per_perm = [stats.get(name, {}).get("sass_per_perm") for name in perms]
     if not (rate and rate == rate) or not all(isinstance(v, int)
                                               for v in per_perm):
         return "not measured"
-    return sum(v * n for v, n in zip(per_perm, perms.values())) / rate * 1e3
+    sharing = [32 // stats[name].get("states_per_warp", 32) for name in perms]
+    return sum(v * k * n for v, k, n in zip(per_perm, sharing,
+                                            perms.values())) / rate * 1e3
 
 
 def counts(stats: dict, name: str, perms: int, rate) -> dict:
@@ -264,11 +287,75 @@ def measure(stats: dict) -> dict:
     return out
 
 
+def absorb_design(padded, tables, design: str):
+    """A function that runs one design of K1's absorb mode ("threads" or
+    "lanes", ``ABSORB_DESIGNS``) over ``padded`` (rows, k * 10) on the
+    card, whichever ``tip5_cuda.lane_mode`` picks for its rows, and returns
+    the (rows, 5) digests."""
+    import torch
+
+    from ..tip5.constants import DIGEST_LENGTH, RATE
+
+    launch = getattr(_build.load(), ABSORB_DESIGNS[design])
+    rc, lut = tables
+    out = torch.empty((padded.shape[0], DIGEST_LENGTH), dtype=torch.int64,
+                      device=padded.device)
+
+    def run():
+        _build.check(launch(padded.data_ptr(), out.data_ptr(),
+                            padded.shape[0], padded.stride(0),
+                            padded.shape[1] // RATE, rc.data_ptr(),
+                            lut.data_ptr(), _build.stream_of(padded)),
+                     ABSORB_DESIGNS[design])
+        return out
+    return run
+
+
+def absorb_sweep(tables, sweep=ABSORB_SWEEP, seed: int = 22) -> list[dict]:
+    """Device ms of both designs of K1's absorb mode over random rows at
+    each (words a row, rows) of ``sweep``, their digests required equal,
+    beside the design that ``tip5_cuda.lane_mode`` picks there."""
+    import torch
+
+    from ..ops import tip5_cuda
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    out = []
+    for width, row_counts in sweep.items():
+        table = torch.randint(0, (1 << 63) - 1, (max(row_counts), width),
+                              generator=g, device="cuda", dtype=torch.int64)
+        resident = tip5_cuda.resident_threads(table.device, "tip5_absorb")
+        for rows in row_counts:
+            fns = {d: absorb_design(table[:rows], tables, d)
+                   for d in ABSORB_DESIGNS}
+            if not torch.equal(fns["threads"](), fns["lanes"]()):
+                raise AssertionError(f"the absorb designs differ at "
+                                     f"({rows}, {width})")
+            out.append({"rows": rows, "width": width,
+                        **{f"{d}_ms": cuda_ms(fn, 5) for d, fn in fns.items()},
+                        "picked": "lanes" if tip5_cuda.lane_mode(
+                            rows, resident) else "threads"})
+        del table
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--library", type=Path, default=None,
                     help="read this build's SASS and report, time nothing")
+    ap.add_argument("--absorb-sweep", action="store_true",
+                    help="time only the absorb mode's two designs "
+                         "(ABSORB_SWEEP)")
     args = ap.parse_args()
+    if args.absorb_sweep:
+        from ..tip5.permutation import tip5_tables
+
+        print(require_card(), flush=True)
+        for row in absorb_sweep(tip5_tables()):
+            print(json.dumps({"probe": "tip5_absorb_sweep", **row}),
+                  flush=True)
+        return
     print(require_card(), flush=True)
     stats = kernel_stats(args.library)
     for name, st in stats.items():
