@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (twenty_first_tpu_torch) on one GPU.
+"""Check the PyTorch/CUDA port (twenty_first_tpu_torch) on one GPU.
 
 Run from the repository root, with no arguments:
 
@@ -9,7 +9,8 @@ It builds the hand-written kernels from twenty_first_tpu_torch/csrc with
 nvcc, holds each against its plain PyTorch twin on the card (exact
 equality: this is integer field arithmetic), reproduces values pinned from
 the JAX reference, and drives twelve paths, each with every launch counter
-set to 0 just before it and read just after:
+set to 0 just before it and read just after (a path fails if one of its
+kernels never launched):
 
 * the flagship step (W = 8 trace columns, n = 2^20, expansion 4: a
   2^22-row LDE + Tip5 Merkle commit) and the entry point (K1, K3 and K2's
@@ -21,27 +22,29 @@ set to 0 just before it and read just after:
   authentication structure from the leafs alone, the MMR over 3 * 2^21 - 1
   leafs with a successor proof of 2^16 more (and over 300 leafs, below the
   parallelization cutoff, still on the card), and Tip5.hash_varlen_batch
-  (K3 and K1 for the leaf digests, K2's two launches, K1);
+  (K3 and K1 for the leaf digests, K2's two launches, K1); K2's launches
+  counted at 2, 2^10 and 2^22 leafs;
 * the standalone Tip5 batch path: permutation_batch at 2^16 and 2^22
   states, the T4/T5 entry points, trace, hash_varlen and
   hash_varlen_ragged (K1 and its trace and absorb modes); K1's absorb
   mode at the table commit's (2^17, 16,390), a thread a row, and at the
-  opening's (80, 16,390), in its lane mode, each against its plain twin,
-  and the absorb mode's two designs timed side by side across row counts;
+  opening's (80, 16,390), in its lane mode, each against its plain twin;
 * the tensor-core Tip5 and the packed commit's entry points
   (ops/tip5_mxu.py, ops/tip5_packed.py): K9, the permutation with its MDS
   as u8 mma on the integer tensor cores, against its twin and K1 at 2^16
-  and 2^22 states and at 2^16 + 9; permutation on the 2^22 states' limb
-  planes, permutation_dense on their lane-dense planes,
-  permutation_values, commit_states_packed over the step's 2^22 leaf
-  states (SLICE_ROOT) and reduce_layers_packed over 2^20 digests against
-  K2's reduce_layers (K9 and K2's two launches); K1 and K9 timed in turns;
+  and 2^22 states, at 2^16 + 9 and at a warp tile's edges; permutation on
+  the 2^22 states' limb planes, permutation_dense on their lane-dense
+  planes, permutation_values, commit_states_packed over the step's 2^22
+  leaf states (SLICE_ROOT) and reduce_layers_packed over 2^20 digests
+  against K2's reduce_layers (K9 and K2's two launches);
 * the polynomial batch path (math/poly_batch.py, the NTT-domain
   convolutions and gf_ext's batch inversion) at full width: the
   out-of-domain extrapolations of bench.py's shape and of the flagship
   trace's width and length, the barycentric evaluation, the coset LDE and
   its inverse, batch products, convolutions at 2^22 and 2^20 (K3, K6, K7
-  and K8);
+  and K8), every output equal to the plain twins'; PINNED_EXTRAPOLATE
+  through the kernels; K6, K7 and K8 alone at edge cases and at the path's
+  shapes against their twins;
 * the polynomial engine (math/polynomial.py) through its object API at
   the shapes of bench.py:584-706 and the flagship step's prover width
   (products at degree 2^14 - 1 and 2^20 - 1, the coset evaluation of
@@ -52,24 +55,19 @@ set to 0 just before it and read just after:
   evaluation of 2^22 values) on its default routes, with the native host
   core loaded: K3, K6, K7 and K8 above the host/device crossovers. Every
   result equals the same call on the host alone and passes an independent
-  check; PINNED_POLYNOMIAL reproduces with every crossover at 0; a sweep
-  times the host against the card for one-shot transforms,
-  convolutions, batched row products and batch inversions, beside the
-  crossovers chosen;
+  check; PINNED_POLYNOMIAL reproduces with every crossover at 0;
 * the host layers (the native host core must be loaded): Tip5.hash_batch
   of 2^12 objects whose BFieldCodec encodings take every codec type (K1),
   each equal to the scalar Tip5.hash and a sample to its pure-Python
   oracle; MerkleTree.new over host leafs above HOST_MERKLE_MAX_LEAFS (K2)
   and at it (the host route, no K2), roots equal to the native core's;
-  verify of 160 openings timed; the lattice KEM's round trip and its
-  refusal of a tampered ciphertext; InverseTip5 undoing K1 on a batch;
-  the Merkle crossover sweep, host against card at 2^1..2^22 leafs;
+  verify of 160 openings; the lattice KEM's round trip and its refusal of
+  a tampered ciphertext; InverseTip5 undoing K1 on a batch;
 * NTT lengths from 2^25, three passes of K3 a transform: ntt and intt at
   2^25 and 2^28 equal to the plain twins on the card element by element,
-  device times and peak memory at 2^25, 2^28 and 2^30, then the largest
-  length that fits the card beside its output (2^32 the target): a delta's
-  transform (X[k + 1] = X[k] w), the round trip, and four outputs of
-  random input evaluated directly;
+  then the largest length that fits the card beside its output (2^32 the
+  target): a delta's transform (X[k + 1] = X[k] w), the round trip, and
+  four outputs of random input evaluated directly;
 * the distributed layer (parallel/) at world 1 over NCCL in this process:
   the LDE commit of 2^24 coefficients (the distributed NTT in its Z layout,
   each row X[k2::n2] hashed by the sponge, the Merkle root over the mesh)
@@ -87,28 +85,17 @@ set to 0 just before it and read just after:
   K3's rev_in and rev_out at every length and at the route's four pass
   shapes against the twin, four_step_ntt_scrambled at 2^24 both ways and
   the (13, 11) split (two K3 passes a factor) against ntt(), the root
-  equal to SLICE_ROOT and the leaf digests to the natural step's, both
-  routes timed in turns (host medians, device ms, peak memory, profiles);
-* the NTT pass probe over 2^24 elements (K3 and K4);
-* the ALU probe, chains of lazy field ops (K5) in both forms.
+  equal to SLICE_ROOT and the leaf digests to the natural step's;
+* the NTT pass probe's variants over 2^24 elements (K3 and K4);
+* the ALU probe's chains of lazy field ops (K5) in both forms.
 
-It prints one JSON line per phase. The last lines are the card's name and
-power limit (as nvidia-smi reports them), the per-kernel JSON line (for
-the Tip5 kernels with their SASS instructions per permutation, registers,
-resident warps and issue-bound time; K2's row is the whole 2^22-leaf
-tree, launch by launch; K3's with its registers, spills, resident warps at
-the step's pass shape and SASS per butterfly), and the device line. K3's
-phase also holds in-place passes, inputs full of edge words and
-ntt(post=, out=) at the step's two sizes against the twins; the step's
-profile splits the glue (every kernel not of csrc/) by kernel name. The
-Merkle tree's root equals the step's (SLICE_ROOT), its nodes and the
-MMR's peaks equal the plain twins' on the card; the tree is timed whole,
-at 2 and 2^10 leaves, and level by level below the resident-thread width
-beside K2's fused tail. The polynomial batch path's outputs equal its plain twins' on the card and
-PINNED_EXTRAPOLATE reproduces through the kernels; K7 is timed launch by
-launch at the path's two shapes. Any failure raises: a
-non-zero exit and no device line.
-It needs a CUDA device and refuses to run without one.
+K3's phase also holds in-place passes, inputs full of edge words and
+ntt(post=, out=) at the step's two sizes against the twins. It prints one
+JSON line per phase, with what the phase checked, and {"ok": true,
+"device": {...}} last. Any failure raises: a non-zero exit and no ok line.
+It times nothing: per-kernel times come from the probes
+(python -m twenty_first_tpu_torch.probes.<name>), per-layer times from
+port_bench/. It needs a CUDA device and refuses to run without one.
 """
 
 from __future__ import annotations
@@ -116,11 +103,8 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
-import os
-import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -232,7 +216,8 @@ LANE_SHAPE = (80, 16390)
 LANE_SEED = 22
 # the authenticated-structures path: leaf indices opened (the order of a
 # STARK's query count), the MMR's leafs (3 * 2^21 - 1: 22 peaks) and the
-# leafs its successor proof appends, the small trees timed beside the big one
+# leafs its successor proof appends, the small trees whose K2 launches are
+# counted beside the big one's
 MERKLE_QUERIES = 160
 MMR_LEAFS, MMR_APPEND = 3 * (1 << 21) - 1, 1 << 16
 SMALL_TREES = (2, 1 << 10)
@@ -247,47 +232,8 @@ MXU_EDGES = (1, 15, 16, 17, 31, 32, 33, 1000)
 PACKED_DIGESTS = 1 << 20
 MXU_SEED = 14
 
-# The bound of a kernel's work: the larger of its bytes (each input read
-# once, each output written once) over the memory rate and its multiplies
-# over the rates of the pipes that can do them (SMs x lanes x the maximum
-# SM clock; the rates in probes/timing.py). Multiplies are counted as the
-# fewest 32x32 -> 64-bit products a known algorithm needs, whatever the
-# kernel does: four for a product of two 64-bit words, three for a square;
-# none for a reduction or a product by 2^32 - 1 or 2^-64 mod p (the S-box's
-# Montgomery conversions), which shifts and adds do. A Tip5 round then
-# costs 14 per word for x^7 on 12 words (x^2, x^3, x^6, x^7: two squares,
-# two products) and, for the MDS, two 16-point cyclic convolutions with
-# the fixed column (one per 32-bit half) of MDS_PRODUCTS products each:
-# the CRT tower of the Tip5 reference's mds_cyclomul, with Karatsuba and
-# three-product complex multiplies at its base
-# (tests/test_torch_bounds.py counts them). K1 does 512 for the MDS.
-# The x^7 products are of full 64-bit words and take the integer-multiply
-# (IMAD) pipe. The MDS's are of 32-bit halves by constants, which the FP64
-# pipe beside it does exactly (K1 runs its MDS there as double FMAs), so
-# they may go to either: the floor of the products is the larger of the
-# IMAD-only ones over the IMAD rate and all of them over both rates.
-IMAD_PER_MUL, IMAD_PER_SQUARE = 4, 3
-MDS_PRODUCTS = 41
-POW7_PRODUCTS_PER_PERM = 5 * 12 * 2 * (IMAD_PER_SQUARE + IMAD_PER_MUL)
-MDS_PRODUCTS_PER_PERM = 5 * 2 * MDS_PRODUCTS
-PRODUCTS_PER_PERM = POW7_PRODUCTS_PER_PERM + MDS_PRODUCTS_PER_PERM
-# K9 (csrc/tip5_mma.cu) runs the MDS on the integer tensor cores instead:
-# 8 u8 mma.m16n8k32 and 16 mma.m16n8k16 (2 * 16 * 8 * K operations each)
-# for each tile of 16 states a round, two tiles a warp, over the int8
-# tensor-core rate; its x^7 products stay on IMAD.
-MMA_OPS_PER_WARP_ROUND = 2 * (8 * 32 + 16 * 16) * 2 * 16 * 8
-MMA_STATES_PER_WARP = 32
 #: canonical edge words K3's checks mix into their inputs
 K3_EDGES = (0, 1, P - 1, 1 << 32, (1 << 32) - 1)
-#: the device kernels of csrc/ by name; every other kernel of a step is glue
-OWN_KERNELS = ("tip5_permute_kernel", "merkle_commit_kernel",
-               "tip5_permute_mma_kernel",
-               "ntt_local_pass_kernel", "coset_fold_kernel",
-               "fold_reduce_kernel", "inv_segment_kernel",
-               "inv_zero_rows_kernel", "gf_pointwise_kernel")
-NO_LIBRARY = {"library_ms": None,
-              "library": "no PyTorch call computes Goldilocks field "
-                         "arithmetic, a Goldilocks NTT or Tip5"}
 
 
 def varlen_input(length: int) -> np.ndarray:
@@ -321,43 +267,6 @@ def pin_of(values) -> tuple:
             hashlib.sha256(arr.tobytes()).hexdigest())
 
 
-def bound(nbytes: int, imads: int, either: int = 0,
-          int8_mma_ops: int = 0) -> dict:
-    """bound_ms and what sets it, for ``nbytes`` moved, ``imads`` products
-    that only the IMAD pipe does, ``either`` that the IMAD or the FP64
-    pipe may do, and ``int8_mma_ops`` operations of u8 tensor-core
-    products (2 M N K an mma) over the int8 tensor-core rate."""
-    from twenty_first_tpu_torch.probes import timing
-
-    clock = timing.sm_clock_mhz()[1]
-    imad_per_s = timing.lane_rate(timing.IMAD_LANES_PER_SM, clock)
-    fp64_per_s = timing.lane_rate(timing.FP64_LANES_PER_SM, clock)
-    mem_ms = nbytes / timing.MEMORY_BYTES_PER_S * 1e3
-    ops_ms = max(imads / imad_per_s,
-                 (imads + either) / (imad_per_s + fp64_per_s),
-                 int8_mma_ops / timing.INT8_TENSOR_OPS_PER_S) * 1e3
-    return {"bound_ms": max(mem_ms, ops_ms),
-            "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
-            "bound_bytes": nbytes, "bound_imads": imads,
-            "bound_imad_or_fp64_products": either,
-            "bound_int8_mma_ops": int8_mma_ops}
-
-
-def tip5_bound(nbytes: int, perms: int) -> dict:
-    """``bound`` of ``perms`` Tip5 permutations moving ``nbytes``."""
-    return bound(nbytes, POW7_PRODUCTS_PER_PERM * perms,
-                 MDS_PRODUCTS_PER_PERM * perms)
-
-
-def k9_bound(perms: int) -> dict:
-    """``bound`` of K9 on ``perms`` states: their bytes in and out, the x^7
-    products on IMAD, and the mma of every warp of 32 states (the last one
-    partly masked)."""
-    warps = -(-perms // MMA_STATES_PER_WARP)
-    return bound(2 * 128 * perms, POW7_PRODUCTS_PER_PERM * perms,
-                 int8_mma_ops=5 * MMA_OPS_PER_WARP_ROUND * warps)
-
-
 def run_path(counters, fn):
     """fn() with every counter at 0 just before; (its result, the counts
     just after, by wrapper name)."""
@@ -377,22 +286,6 @@ def require_launched(path: str, launches: dict) -> None:
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median device milliseconds of fn() by CUDA events, after one warm-up
-    call, with the host's launch overheads hidden (probes/timing.py)."""
-    from twenty_first_tpu_torch.probes import timing
-
-    return timing.cuda_ms(fn, reps)
-
-
-def wall_ms(fn, reps: int) -> float:
-    """Median host milliseconds of fn() up to the device's end, launch
-    overheads included (probes/timing.py)."""
-    from twenty_first_tpu_torch.probes import timing
-
-    return timing.wall_ms(fn, reps)
 
 
 def max_abs_err(got, want) -> float:
@@ -439,7 +332,7 @@ def edge_field(rng, shape, device="cuda"):
     return gf.from_u64(edge_words(rng, shape)).to(device)
 
 
-def check_device() -> str:
+def check_device() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
     sys.path.insert(0, str(HERE))
@@ -455,22 +348,19 @@ def check_device() -> str:
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
          capability=list(torch.cuda.get_device_capability(0)))
-    return smi
 
 
 def phase_build() -> None:
     from twenty_first_tpu_torch import _build
 
-    t0 = time.perf_counter()
     so = _build.build()
     _build.load()
-    seconds = time.perf_counter() - t0
     ptxas = [line.strip() for line in _build.build_log().splitlines()
              if "Used" in line or "spill" in line or "Compiling" in line]
-    emit("build", seconds=seconds, library=so.name, ptxas=ptxas)
+    emit("build", library=so.name, ptxas=ptxas)
 
 
-def phase_k1(rng, tables) -> dict:
+def phase_k1(rng, tables) -> None:
     from twenty_first_tpu_torch.math import gf
     from twenty_first_tpu_torch.ops import tip5_cuda
 
@@ -489,26 +379,18 @@ def phase_k1(rng, tables) -> dict:
         raise AssertionError("K1 misses the Tip5 reference snapshot")
     # at the main path's shape: the leaf hash of 2^22 rows
     big = random_field(rng, (N * E, 16))
-    got = tip5_cuda.tip5_permute(big, *tables)
-    err = require_equal("K1 at the path's shape", got,
-                        tip5_cuda.tip5_permute_plain(big, *tables))
-    ms = cuda_ms(lambda: tip5_cuda.tip5_permute(big, *tables), 10)
-    host_ms = wall_ms(lambda: tip5_cuda.tip5_permute(big, *tables), 10)
-    plain_ms = cuda_ms(lambda: tip5_cuda.tip5_permute_plain(big, *tables), 3)
+    require_equal("K1 at the path's shape",
+                  tip5_cuda.tip5_permute(big, *tables),
+                  tip5_cuda.tip5_permute_plain(big, *tables))
     emit("k1_tip5_permute", states=states.shape[0], snapshot=True,
-         shape=[N * E, 16], ms=ms, plain_ms=plain_ms,
-         perms_per_s=N * E / (ms * 1e-3))
-    return {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
-            "plain_ms": plain_ms,
-            **tip5_bound(2 * 128 * N * E, N * E)}
+         shape=[N * E, 16], twin_equal=True)
 
 
-def phase_k2(rng, tables) -> dict:
+def phase_k2(rng, tables) -> None:
     """K2, the tree: uneven and forced-branch cases against the plain twins,
-    then the tree over the main path's 2^22 leaf digests, timed whole and
-    launch by launch."""
+    then the tree over the main path's 2^22 leaf digests and its first
+    level alone."""
     from twenty_first_tpu_torch.ops import tip5_commit, tip5_cuda
-    from twenty_first_tpu_torch.probes import tip5_probe
 
     states = random_field(rng, (1 << 16, 16))
     require_equal("K2 commit of 2^16 leaf states",
@@ -544,46 +426,21 @@ def phase_k2(rng, tables) -> dict:
     # at the main path's shape: the tree over 2^22 leaf digests
     leafs = random_field(rng, (N * E, 5))
     log_rows = (N * E).bit_length() - 1
-    tree = lambda: tip5_commit.reduce_layers(leafs, log_rows, tables=tables)  # noqa: E731
-    tree_plain = lambda: tip5_commit.reduce_layers(  # noqa: E731
-        leafs, log_rows, tables=tables, plain=True)
-    err = require_equal("K2 tree over the path's leafs", tree(), tree_plain())
+    require_equal("K2 tree over the path's leafs",
+                  tip5_commit.reduce_layers(leafs, log_rows, tables=tables),
+                  tip5_commit.reduce_layers(leafs, log_rows, tables=tables,
+                                            plain=True))
     resident = tip5_cuda.resident_threads(leafs.device)
-    plan = tip5_commit.plan(N * E, log_rows, resident)
-    ms = cuda_ms(tree, 10)
-    host_ms = wall_ms(tree, 10)
-    plain_ms = cuda_ms(tree_plain, 3)
-    launches = tip5_probe.tree_launch_ms(leafs, tables)
-    summary = tip5_probe.tree_summary(launches)
     # the level kernel alone: the first level, 2^22 -> 2^21 digests
-    level = lambda: tip5_cuda.merkle_level(leafs, False, *tables)  # noqa: E731
-    level_plain = lambda: tip5_cuda.merkle_level_plain(  # noqa: E731
-        leafs, False, *tables)
-    level_err = require_equal("K2 level at the path's shape", level(),
-                              level_plain())
-    level_row = {"max_abs_err": level_err, "ms": cuda_ms(level, 10),
-                 "wall_ms": wall_ms(level, 10),
-                 "plain_ms": cuda_ms(level_plain, 3),
-                 **tip5_bound(40 * (N * E + N * E // 2), N * E // 2)}
-    emit("k2_merkle_tree", cases=checked + 2, resident_threads=resident,
-         plan=plan, ms=ms, wall_ms=host_ms, plain_ms=plain_ms,
-         launch_ms=launches, **summary, level_ms=level_row["ms"])
-    fused_perms = sum(t["rows_in"] - (t["rows_in"] >> t["levels"])
-                      for t in launches if t["launch"] == "fused")
-    return {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
-            "plain_ms": plain_ms, "tree_leafs": N * E,
-            "perms": {"merkle_level": N * E - 1 - fused_perms,
-                      "merkle_commit": fused_perms},
-            # the plan's launch count as plan_launches: "launches" is the
-            # path's count, which the kernels line sets
-            **{("plan_launches" if k == "launches" else k): v
-               for k, v in summary.items()},
-            "plan": plan, "resident_threads": resident,
-            "level_kernel": level_row,
-            **tip5_bound(40 * (N * E + 1), N * E - 1)}
+    require_equal("K2 level at the path's shape",
+                  tip5_cuda.merkle_level(leafs, False, *tables),
+                  tip5_cuda.merkle_level_plain(leafs, False, *tables))
+    emit("k2_merkle_tree", cases=checked + 2, tree_leafs=N * E,
+         resident_threads=resident,
+         plan=tip5_commit.plan(N * E, log_rows, resident))
 
 
-def phase_k3(rng) -> dict:
+def phase_k3(rng) -> None:
     from twenty_first_tpu_torch.math import gf, ntt
     from twenty_first_tpu_torch.ops import ntt_cuda
 
@@ -645,27 +502,11 @@ def phase_k3(rng) -> dict:
     fwd = ntt.ntt_tables(N * E, False, "cuda")
     log_n1, log_n2 = ntt.four_step_split((N * E).bit_length() - 1)
     x = random_field(rng, (W, 1 << log_n2, 1 << log_n1))
-    err = require_equal(
-        f"K3 at {tuple(x.shape)}",
-        ntt_cuda.ntt_local_pass(x, fwd.tw1, diag=fwd.diag),
-        ntt_cuda.ntt_local_pass_plain(x, fwd.tw1, diag=fwd.diag))
-    ms = cuda_ms(lambda: ntt_cuda.ntt_local_pass(x, fwd.tw1, diag=fwd.diag), 10)
-    host_ms = wall_ms(lambda: ntt_cuda.ntt_local_pass(x, fwd.tw1,
-                                                      diag=fwd.diag), 10)
-    plain_ms = cuda_ms(lambda: ntt_cuda.ntt_local_pass_plain(
-        x, fwd.tw1, diag=fwd.diag), 3)
-    flat = x.reshape(W, N * E)
-    ntt_ms = cuda_ms(lambda: ntt.ntt(flat, tables=fwd), 10)
-    ntt_plain_ms = cuda_ms(lambda: ntt.ntt(flat, tables=fwd, plain=True), 3)
+    require_equal(f"K3 at {tuple(x.shape)}",
+                  ntt_cuda.ntt_local_pass(x, fwd.tw1, diag=fwd.diag),
+                  ntt_cuda.ntt_local_pass_plain(x, fwd.tw1, diag=fwd.diag))
     emit("k3_ntt_local_pass", passes_checked=checked, ntt_sizes=[10, 17, 22],
-         shape=list(x.shape), ms=ms, plain_ms=plain_ms,
-         ntt_path_ms=ntt_ms, ntt_path_plain_ms=ntt_plain_ms)
-    b, t, c = x.shape
-    products = b * c * (t // 2) * log_n2 + b * t * c  # butterflies + diagonal
-    return {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
-            "plain_ms": plain_ms,
-            **bound(16 * x.numel() + 8 * fwd.diag.numel(),
-                    IMAD_PER_MUL * products)}
+         shape=list(x.shape), twin_equal=True)
 
 
 def phase_pinned_roots() -> None:
@@ -683,38 +524,9 @@ def phase_pinned_roots() -> None:
     emit("pinned_jax_roots", sizes=sorted(PINNED_ROOTS), ok=True)
 
 
-def device_breakdown(fn) -> dict:
-    """Device time by kernel over one fn() under torch.profiler, and the
-    device's busy share of that call's CUDA-event time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    span_ms = start.elapsed_time(end)
-    # the glue: every device kernel that is not one of the port's own
-    glue = [e for e in kernels if not any(k in e.key for k in OWN_KERNELS)]
-    return {"span_ms": span_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / span_ms if busy_ms else "not measured",
-            "glue_device_ms": sum(e.self_device_time_total for e in glue) / 1e3,
-            "glue_launches": sum(e.count for e in glue),
-            "kernels": [{"name": e.key[:90], "calls": e.count,
-                         "device_ms": e.self_device_time_total / 1e3}
-                        for e in kernels[:24]]}
-
-
-def phase_slice(counters) -> dict:
+def phase_slice(counters) -> list:
+    """The flagship step once with the launch counters at 0, its root
+    against the plain twins' on the card; returns the root."""
     from twenty_first_tpu_torch.math import gf
     from twenty_first_tpu_torch.parallel import pipeline
 
@@ -728,34 +540,19 @@ def phase_slice(counters) -> dict:
         raise AssertionError(f"bad root {vals.tolist()}")
     require_equal("slice root: kernels vs plain on the card", root,
                   step(trace, plain=True))
-    from twenty_first_tpu_torch.probes import timing
-
-    torch.cuda.reset_peak_memory_stats()
-    times = sorted(timing.wall_times(lambda: step(trace), 21))
-    wall = statistics.median(times)
-    peak = torch.cuda.max_memory_allocated()
-    device_ms = cuda_ms(lambda: step(trace), 21)
-    torch.cuda.reset_peak_memory_stats()
-    plain_ms = wall_ms(lambda: step(trace, plain=True), 3)
-    plain_peak = torch.cuda.max_memory_allocated()
     emit("slice_lde_commit", w=W, n=N, expansion=E, rows=N * E,
-         root=vals[0].tolist(), launches=launches, wall_ms=wall,
-         runs=len(times), wall_ms_min=times[0], wall_ms_max=times[-1],
-         ms=device_ms, plain_wall_ms=plain_ms, max_memory_allocated=peak,
-         plain_max_memory_allocated=plain_peak)
-    emit("slice_profile", **device_breakdown(lambda: step(trace)))
-    return launches, vals[0].tolist()
+         root=vals[0].tolist(), launches=launches, plain_equal=True)
+    return vals[0].tolist()
 
 
-def phase_merkle_objects(counters, slice_root, fused_tail_ms) -> dict:
+def phase_merkle_objects(counters, slice_root) -> None:
     """The authenticated-structures path at a prover's sizes: the Merkle
     tree over the flagship step's 2^22 leaf digests with 160 openings, the
     MMR over 3 * 2^21 - 1 leafs and a successor proof of 2^16 more, and a
     ragged batch through the Tip5 object API (K1, K2's two launches, K3
-    through the step's leaf digests)."""
-    from twenty_first_tpu_torch.ops import tip5_commit, tip5_cuda
+    through the step's leaf digests); K2's launches counted at 2, 2^10 and
+    2^22 leafs and below the MMR's cutoff."""
     from twenty_first_tpu_torch.parallel import pipeline
-    from twenty_first_tpu_torch.probes import timing
     from twenty_first_tpu_torch.tip5 import Digest, Tip5
     from twenty_first_tpu_torch.util_types.merkle_tree import (
         MerkleTree, MerkleTreeInclusionProof)
@@ -802,9 +599,7 @@ def phase_merkle_objects(counters, slice_root, fused_tail_ms) -> dict:
     if auth != got["from_leafs"] or auth != proof.authentication_structure:
         raise AssertionError("authentication_structure != "
                              "authentication_structure_from_leafs")
-    t0 = time.perf_counter()
     verified = proof.verify(root)
-    verify_ms = (time.perf_counter() - t0) * 1e3
     flipped = list(auth)
     flipped[len(flipped) // 2] = Digest(
         [flipped[len(flipped) // 2].values()[0] + 1]
@@ -830,13 +625,7 @@ def phase_merkle_objects(counters, slice_root, fused_tail_ms) -> dict:
     if got["ragged"] != [Tip5.hash_varlen([int(v) for v in seq])
                          for seq in ragged]:
         raise AssertionError("hash_varlen_batch != scalar hash_varlen")
-    # times: the tree, whole and at the small sizes
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    MerkleTree.new(leafs)
-    torch.cuda.synchronize()
-    tree_peak = torch.cuda.max_memory_allocated() - base
-    tree_launches = run_path(counters, lambda: MerkleTree.new(leafs))[1]
+    # K2's launches: one a level, at the small sizes and the whole tree
     trees = {}
     for size in SMALL_TREES + (N * E,):
         small = leafs[:size].contiguous()
@@ -844,9 +633,7 @@ def phase_merkle_objects(counters, slice_root, fused_tail_ms) -> dict:
         if counts["merkle_level"] != size.bit_length() - 1:
             raise AssertionError(f"MerkleTree.new({size}) made "
                                  f"{counts['merkle_level']} K2 launches")
-        trees[size] = {"ms": cuda_ms(lambda: MerkleTree.new(small), 10),
-                       "wall_ms": wall_ms(lambda: MerkleTree.new(small), 10),
-                       "merkle_level_launches": counts["merkle_level"]}
+        trees[str(size)] = counts["merkle_level"]
     # an MMR below the cutoff: its peaks are still reduced on the card
     small_mmr = mmr_leafs[:SMALL_MMR].contiguous()
     small_acc, counts = run_path(
@@ -856,59 +643,14 @@ def phase_merkle_objects(counters, slice_root, fused_tail_ms) -> dict:
             small_mmr, plain=True):
         raise AssertionError(f"MMR of {SMALL_MMR} leafs: {small_mmr_k2} K2 "
                              "launches, or peaks != plain on the card")
-    small_mmr_ms = cuda_ms(lambda: MmrAccumulator.peaks_from_leafs(small_mmr),
-                           10)
-    small_mmr_wall_ms = wall_ms(
-        lambda: MmrAccumulator.peaks_from_leafs(small_mmr), 10)
-    # the levels below the resident-thread width, one launch a level, beside
-    # the commit's fused tail over the same levels (k2_merkle_tree)
-    tables = step.round_constants, step.lookup_table
-    full_width = sum(1 for t in tip5_commit.plan(
-        N * E, (N * E).bit_length() - 1,
-        tip5_cuda.resident_threads(leafs.device)) if t[0] == "level")
-    tail_leafs = tip5_commit.reduce_layers(leafs, full_width, tables=tables)
-    tail_tree_ms = cuda_ms(lambda: MerkleTree.new(tail_leafs), 10)
-    tail_level_ms, x = [], tail_leafs
-    while x.shape[0] > 1:
-        tail_level_ms.append(cuda_ms(
-            lambda x=x: tip5_cuda.merkle_level(x, False, *tables), 10))
-        x = tip5_cuda.merkle_level(x, False, *tables)
-    # the openings and the MMR
-    gather_ms = wall_ms(lambda: tree.authentication_structure(indices), 10)
-    from_leafs_ms = wall_ms(lambda: MerkleTree.authentication_structure_from_leafs(
-        leafs, indices), 5)
-    peaks_ms = cuda_ms(lambda: MmrAccumulator.peaks_from_leafs(mmr_leafs), 5)
-    peaks_wall_ms = wall_ms(lambda: MmrAccumulator.peaks_from_leafs(
-        mmr_leafs), 5)
-    peaks_plain_ms = timing.wall_ms(lambda: MmrAccumulator.peaks_from_leafs(
-        mmr_leafs, plain=True), 1, warmup=0)
-    successor_ms = wall_ms(lambda: MmrSuccessorProof.new_from_batch_append(
-        acc, appended), 3)
-    big = trees[N * E]
     emit("merkle_objects", launches=launches, leafs=N * E,
-         root=[v.value() for v in root.values()], tree_ms=big["ms"],
-         tree_wall_ms=big["wall_ms"],
-         tree_wall_ms_runs=timing.wall_times(lambda: MerkleTree.new(leafs), 5),
-         tree_launches=tree_launches, tree_peak_bytes=tree_peak,
-         node_bytes=2 * N * E * 40,
-         small_trees={str(k): v for k, v in trees.items()},
-         tail_rows=tail_leafs.shape[0], tail_level_ms=tail_level_ms,
-         tail_levels_ms=sum(tail_level_ms), tail_tree_ms=tail_tree_ms,
-         fused_tail_ms=fused_tail_ms,
-         tail_excess_ms=sum(tail_level_ms) - fused_tail_ms,
-         queries=MERKLE_QUERIES, auth_nodes=len(auth),
-         auth_gather_copy_wall_ms=gather_ms,
-         auth_from_leafs_wall_ms=from_leafs_ms, verify_host_ms=verify_ms,
-         verified=verified, tampered_verified=tampered_verified,
-         mmr_leafs=MMR_LEAFS, mmr_peaks=len(acc.peaks()),
-         peaks_from_leafs_ms=peaks_ms, peaks_from_leafs_wall_ms=peaks_wall_ms,
-         peaks_from_leafs_plain_wall_ms=peaks_plain_ms,
-         small_mmr_leafs=SMALL_MMR, small_mmr_k2_launches=small_mmr_k2,
-         small_mmr_peaks_ms=small_mmr_ms,
-         small_mmr_peaks_wall_ms=small_mmr_wall_ms,
-         successor_appended=MMR_APPEND, successor_paths=len(successor.paths),
-         successor_wall_ms=successor_ms, ragged_inputs=len(ragged))
-    return launches
+         root=root_vals, tree_plain_equal=True,
+         merkle_level_launches=trees, queries=MERKLE_QUERIES,
+         auth_nodes=len(auth), verified=verified,
+         tampered_verified=tampered_verified, mmr_leafs=MMR_LEAFS,
+         mmr_peaks=len(acc.peaks()), small_mmr_leafs=SMALL_MMR,
+         small_mmr_k2_launches=small_mmr_k2, successor_appended=MMR_APPEND,
+         successor_paths=len(successor.paths), ragged_inputs=len(ragged))
 
 
 def phase_entry() -> None:
@@ -942,7 +684,7 @@ def require_snapshot(what: str, states_out) -> None:
         raise AssertionError(f"{what} misses the Tip5 reference snapshot")
 
 
-def phase_tip5_batch(rng, tables) -> dict:
+def phase_tip5_batch(rng, tables) -> None:
     """The standalone Tip5 batch path: K1 and its trace mode."""
     from twenty_first_tpu_torch.math import gf
     from twenty_first_tpu_torch.ops import tip5_batch, tip5_cuda
@@ -985,8 +727,8 @@ def phase_tip5_batch(rng, tables) -> dict:
     require_launched("tip5_batch", launches)
     # against the plain twins on the card, at reduced sizes where plain
     # sponges would be long
-    err = require_equal("permutation_batch (small)", got["batch_small"],
-                        tperm.permutation_batch(small_d, plain=True))
+    require_equal("permutation_batch (small)", got["batch_small"],
+                  tperm.permutation_batch(small_d, plain=True))
     for name in ("batch_small", "batch_big"):
         require_snapshot(name, got[name])
     plain45 = tip5_cuda.tip5_permute_plain(t45_d, *tables)
@@ -1011,37 +753,14 @@ def phase_tip5_batch(rng, tables) -> dict:
     if not np.array_equal(got["ragged_mixed"],
                           tperm.hash_varlen_ragged(mixed, plain=True)):
         raise AssertionError("hash_varlen_ragged (mixed) kernel != plain")
-    # timings, on the kernel path only
-    ms = {"batch_small": cuda_ms(lambda: tperm.permutation_batch(small_d), 10),
-          "batch_big": cuda_ms(lambda: tperm.permutation_batch(big_d), 10),
-          "t4_permutation": cuda_ms(t4t5["permutation"], 10),
-          "trace": cuda_ms(lambda: tperm.trace(trace_d), 10)}
-    trace_wall_ms = wall_ms(lambda: tperm.trace(trace_d), 10)
-    trace_plain_ms = cuda_ms(lambda: tperm.trace(trace_d, plain=True), 3)
-    ms["t4_permutation_plain"] = cuda_ms(
-        lambda: tip5_cuda.tip5_permute_plain(t45_d, *tables), 3)
-    host_ms = {
-        "varlen_10": wall_ms(lambda: tperm.hash_varlen(varlen_input(10)), 5),
-        "varlen_16384": wall_ms(lambda: tperm.hash_varlen(
-            varlen_input(16384)), 5),
-        "ragged_mixed": wall_ms(lambda: tperm.hash_varlen_ragged(mixed), 5)}
     before = tip5_cuda.tip5_permute.launches
     tperm.hash_varlen(varlen_input(16384))
     varlen_launches = tip5_cuda.tip5_permute.launches - before
     emit("tip5_batch", launches=launches, states=list(BATCH_STATES),
          t45_states=T45_STATES, trace_states=TRACE_STATES,
-         t45_bound=tip5_bound(2 * 128 * T45_STATES, T45_STATES),
-         mixed_inputs=MIXED_INPUTS, ms=ms, host_ms=host_ms,
+         mixed_inputs=MIXED_INPUTS,
          hash_varlen_16384_launches=varlen_launches,
-         perms_per_s={n: n / (ms[k] * 1e-3) for n, k in
-                      zip(BATCH_STATES, ("batch_small", "batch_big"))},
          pinned=["snapshot", "trace", "varlen_10", "varlen_16384", "ragged"])
-    return {"launches": launches, "max_abs_err": err,
-            "trace": {"launches": launches["tip5_trace"],
-                      "ms": ms["trace"], "wall_ms": trace_wall_ms,
-                      "plain_ms": trace_plain_ms,
-                      **tip5_bound(8 * (16 + 96) * TRACE_STATES,
-                                   TRACE_STATES)}}
 
 
 def absorb_table(shape, seed):
@@ -1072,7 +791,7 @@ def absorb_counted(table, tables) -> tuple:
                  tip5_cuda.tip5_absorb.lane_launches - before[1])
 
 
-def phase_k1_absorb(tables) -> dict:
+def phase_k1_absorb(tables) -> None:
     """K1's absorb mode at the table commit's shape: one launch for every
     chunk of every row of a (2^17, 16,390) table (rows past 2^31 bytes,
     edge words first in every row), a thread a row, equal to the plain
@@ -1085,27 +804,20 @@ def phase_k1_absorb(tables) -> dict:
     if moved != (1, 0):
         raise AssertionError(f"K1's absorb mode at the table's shape moved "
                              f"(launches, lane launches) by {moved}")
-    err = require_equal("K1 absorb at the table's shape", got,
-                        tip5_cuda.tip5_absorb_plain(table, *tables))
-    ms = cuda_ms(lambda: tip5_cuda.tip5_absorb(table, *tables), 3)
-    perms = rows * (width // 10)
+    require_equal("K1 absorb at the table's shape", got,
+                  tip5_cuda.tip5_absorb_plain(table, *tables))
     del table, got
     torch.cuda.empty_cache()  # 17 GB, before the phases that fill the card
-    emit("k1_absorb", shape=[rows, width], twin_equal=True, ms=ms,
-         ns_per_perm=ms * 1e6 / perms)
-    return {"max_abs_err": err, "ms": ms, "shape": [rows, width],
-            "perms": perms, "launches": 1, "lane_launches": 0}
+    emit("k1_absorb", shape=[rows, width], twin_equal=True,
+         launches=1, lane_launches=0)
 
 
-def phase_k1_absorb_lanes(tables) -> dict:
+def phase_k1_absorb_lanes(tables) -> None:
     """K1's absorb mode at the opening's shape, which takes its lane mode:
     one launch over a (80, 16,390) table (edge words first in every row),
     counted as K1's and as a lane-mode launch, equal to the plain twin on
-    the same table; timed beside the thread-a-row design on the same
-    table, and both designs across ``tip5_probe.ABSORB_SWEEP`` (equal
-    digests) beside the design ``lane_mode`` picks."""
+    the same table."""
     from twenty_first_tpu_torch.ops import tip5_cuda
-    from twenty_first_tpu_torch.probes import tip5_probe
 
     rows, width = LANE_SHAPE
     table = absorb_table(LANE_SHAPE, LANE_SEED)
@@ -1113,19 +825,10 @@ def phase_k1_absorb_lanes(tables) -> dict:
     if moved != (1, 1):
         raise AssertionError(f"K1's absorb mode at the opening's shape moved "
                              f"(launches, lane launches) by {moved}")
-    err = require_equal("K1 lane mode at the opening's shape", got,
-                        tip5_cuda.tip5_absorb_plain(table, *tables))
-    ms = cuda_ms(lambda: tip5_cuda.tip5_absorb(table, *tables), 5)
-    threads_ms = cuda_ms(tip5_probe.absorb_design(table, tables, "threads"),
-                         5)
-    perms = rows * (width // 10)
-    del table, got
-    sweep = tip5_probe.absorb_sweep(tables)
-    emit("k1_absorb_lanes", shape=[rows, width], twin_equal=True, ms=ms,
-         threads_ms=threads_ms, ns_per_perm=ms * 1e6 / perms, sweep=sweep)
-    return {"max_abs_err": err, "ms": ms, "threads_ms": threads_ms,
-            "shape": [rows, width], "perms": perms, "launches": 1,
-            "lane_launches": 1, "sweep": sweep}
+    require_equal("K1 lane mode at the opening's shape", got,
+                  tip5_cuda.tip5_absorb_plain(table, *tables))
+    emit("k1_absorb_lanes", shape=[rows, width], twin_equal=True,
+         launches=1, lane_launches=1)
 
 
 def slice_leaf_states():
@@ -1149,50 +852,32 @@ def slice_leaf_states():
     return states
 
 
-def k1_k9_in_turns(x, tables) -> dict:
-    """K1 and K9 on the same states, timed in turns (K1, K9, K9, K1): each
-    one's device ms (CUDA events, median of 10) and wall_ms, both
-    readings."""
-    from twenty_first_tpu_torch.ops import tip5_cuda, tip5_mxu
-
-    fns = {"k1": lambda: tip5_cuda.tip5_permute(x, *tables),
-           "k9": lambda: tip5_mxu.tip5_permute_mma(x, *tables)}
-    out = {k: {"ms": [], "wall_ms": []} for k in fns}
-    for name in ("k1", "k9", "k9", "k1"):
-        out[name]["ms"].append(cuda_ms(fns[name], 10))
-        out[name]["wall_ms"].append(wall_ms(fns[name], 10))
-    return out
-
-
-def phase_tip5_mxu(tables, stats) -> dict:
+def phase_tip5_mxu(tables) -> None:
     """K9 and the entry points of ops/tip5_mxu.py and ops/tip5_packed.py.
 
     K9 against its plain twin on the card and against K1, at 2^16 and
     2^22 states, at a batch that is not a multiple of 32 and at the warp
-    tile's edges, inputs with edge words; its SASS a permutation by class
-    beside K1's (``stats``, ``tip5_probe.kernel_stats``); then the path,
-    once, with the counters at 0:
+    tile's edges, inputs with edge words; then the path, once, with the
+    counters at 0:
     ``permutation`` on the 2^22 states' limb planes, ``permutation_dense``
     on their lane-dense planes, ``permutation_values`` on 2^16 host states,
     ``commit_states_packed`` over the step's 2^22 leaf states (SLICE_ROOT)
     and ``reduce_layers_packed`` over 2^20 digests to their root (K9 and
-    K2's two launches); then K1 and K9 in turns at 2^16 and 2^22."""
+    K2's two launches)."""
     from twenty_first_tpu_torch.math import gf
     from twenty_first_tpu_torch.ops import (tip5_commit, tip5_cuda, tip5_mxu,
                                             tip5_packed)
-    from twenty_first_tpu_torch.probes import tip5_probe
 
     rng = np.random.default_rng(MXU_SEED)
     small_n, big_n = MXU_STATES
     inputs = {n: edge_field(rng, (n, 16))
               for n in (*MXU_STATES, MXU_RAGGED, *MXU_EDGES)}
     inputs[small_n][0] = gf.from_u64(snapshot_state())[0].cuda()
-    k1_out, err = {}, 0.0
+    k1_out = {}
     for n, x in inputs.items():
         got = tip5_mxu.tip5_permute_mma(x, *tables)
-        err = max(err, require_equal(
-            f"K9 at {n} states vs its twin", got,
-            tip5_mxu.tip5_permute_mma_plain(x, *tables)))
+        require_equal(f"K9 at {n} states vs its twin", got,
+                      tip5_mxu.tip5_permute_mma_plain(x, *tables))
         k1_out[n] = tip5_cuda.tip5_permute(x, *tables)
         require_equal(f"K9 at {n} states vs K1", got, k1_out[n])
     require_snapshot("K9", k1_out[small_n])
@@ -1238,36 +923,9 @@ def phase_tip5_mxu(tables, stats) -> dict:
     require_equal("reduce_layers_packed vs K2's reduce_layers",
                   gf.carrier_of(got["reduce"]),
                   tip5_commit.reduce_layers(digests, layers))
-    turns = {n: k1_k9_in_turns(inputs[n], tables) for n in MXU_STATES}
-    plain_ms = cuda_ms(lambda: tip5_mxu.tip5_permute_mma_plain(big, *tables),
-                       3)
-    block, blocks = tip5_mxu.occupancy()
-    by_size = {n: {"ms": statistics.mean(t["k9"]["ms"]),
-                   "wall_ms": statistics.mean(t["k9"]["wall_ms"]),
-                   "k1_ms": statistics.mean(t["k1"]["ms"]),
-                   "k1_wall_ms": statistics.mean(t["k1"]["wall_ms"]),
-                   "turns": t, "bound": k9_bound(n),
-                   "k1_bound": tip5_bound(2 * 128 * n, n)}
-               for n, t in turns.items()}
-    sass = {name: {k: stats.get(kernel, {}).get(k, "not measured")
-                   for k in tip5_probe.CLASSES}
-            for name, kernel in (("k9", "tip5_permute_mma"),
-                                 ("k1", "tip5_permute"))}
     emit("tip5_mxu", launches=launches, states=list(MXU_STATES),
-         ragged=MXU_RAGGED, edges=list(MXU_EDGES), sass_by_class=sass,
-         packed_digests=PACKED_DIGESTS,
-         commit_root=SLICE_ROOT, k9_over_k1={
-             n: v["ms"] / v["k1_ms"] for n, v in by_size.items()},
-         by_size=by_size, plain_ms=plain_ms,
-         resident_warps_per_sm=blocks * block // 32)
-    return {"launches": launches, "max_abs_err": err,
-            "ms": by_size[big_n]["ms"], "wall_ms": by_size[big_n]["wall_ms"],
-            "plain_ms": plain_ms, **k9_bound(big_n),
-            "by_size": {n: {k: v[k] for k in ("ms", "wall_ms", "k1_ms",
-                                               "k1_wall_ms")}
-                        for n, v in by_size.items()},
-            "resident_warps_per_sm": blocks * block // 32,
-            "sass_by_class": sass}
+         ragged=MXU_RAGGED, edges=list(MXU_EDGES),
+         packed_digests=PACKED_DIGESTS, commit_root=SLICE_ROOT)
 
 
 #: the polynomial phase's inputs: np.random.default_rng(POLY_SEED)
@@ -1278,50 +936,15 @@ POLY_SEED = 10
 POLY_BENCH_N, POLY_BENCH_POINTS = 1 << 18, 1 << 10
 POLY_XFE_POINTS = 16
 CONV_N, CONV_XFE_N = 1 << 22, 1 << 20
-# least 32x32 -> 64-bit products a known algorithm needs for one K6 term
-# (coefficient x point power): Horner's product with a base point; with an
-# xfe point and base coefficients, the division of the coefficients by the
-# point's cubic minimal polynomial (three a coefficient); with xfe
-# coefficients, Horner with Karatsuba's six-product xfe product
-FOLD_PRODUCTS = {(False, False): 1, (True, False): 3, (True, True): 6}
-# the fixed addition chain for x^(p-2): 63 squarings and 9 products
-INVERSE_SQUARES, INVERSE_PRODUCTS = 63, 9
-# device ms of K6 (one reduction a term), K8's inverse (the chain on
-# canonical products), K7 (three launches reading x twice, one inversion a
-# row) and K5 (mul_lazy k = 112 at 2^22 in the C forms) before their
-# redesign, at the shapes timed below, on an H100 80GB HBM3 at 700 W
-# (PERF.md section 6 names the runs); printed beside this run's times in
-# the kernels' phase lines, and in no other line
-BEFORE_MS = {"k6": 0.50674, "k6_base_coeffs": 2.0735,
-             "k6_xfe_coeffs": 0.67040, "k8_inv": 0.48976, "k7": 0.032368,
-             "k7_rows_8": 0.14938, "k5": 0.66418}
 
 
-def fold_bound(rows: int, n: int, m: int, xpts: bool, xcoef: bool) -> dict:
-    comps = 3 if xpts else 1
-    nbytes = 8 * (rows * n * (3 if xcoef else 1) + m * comps
-                  + rows * m * comps)
-    return bound(nbytes, IMAD_PER_MUL * FOLD_PRODUCTS[xpts, xcoef]
-                 * rows * n * m)
-
-
-def kernel_row(fn, plain, reps: int = 10, plain_reps: int = 3) -> dict:
-    """A kernel call against its twin on the card: max_abs_err, device ms,
-    host-inclusive wall_ms, the twin's device ms."""
-    err = require_equal("kernel vs plain", fn(), plain())
-    return {"max_abs_err": err, "ms": cuda_ms(fn, reps),
-            "wall_ms": wall_ms(fn, reps), "plain_ms": cuda_ms(plain,
-                                                               plain_reps)}
-
-
-def phase_poly_batch(rng, counters) -> dict:
+def phase_poly_batch(rng, counters) -> None:
     """The polynomial batch path at full width, once with the launch
     counters at 0, against its plain twins; the pins; then K6-K8 alone at
-    the path's shapes, and the path's end-to-end times."""
+    edge cases and at the path's shapes against their twins."""
     from twenty_first_tpu_torch.math import gf, gf_ext, ntt, poly_batch
     from twenty_first_tpu_torch.math import gf_numpy as gfn
     from twenty_first_tpu_torch.ops import poly_cuda
-    from twenty_first_tpu_torch.probes import inv_probe, timing
 
     codeword = edge_words(rng, (1, POLY_BENCH_N))
     points = np.unique(rng.integers(1, P, size=2 * POLY_BENCH_POINTS,
@@ -1451,167 +1074,44 @@ def phase_poly_batch(rng, counters) -> dict:
     cw_dev = gf.from_u64(codeword).cuda()
     bench_b = ntt.intt(cw_dev)
     bench_w = gf.from_u64(gfn.mul(points, np.uint64(pow(7, P - 2, P)))).cuda()
-    k6 = {**kernel_row(lambda: poly_cuda.coset_extrapolate_fold(bench_b,
-                                                                bench_w),
-                       lambda: poly_cuda.coset_extrapolate_fold_plain(
-                           bench_b, bench_w)),
-          **fold_bound(1, POLY_BENCH_N, POLY_BENCH_POINTS, False, False),
-          "shape": [1, POLY_BENCH_N, POLY_BENCH_POINTS],
-          "plan": poly_cuda.fold_plan(1, POLY_BENCH_N, POLY_BENCH_POINTS)}
-    k6_before = {"ms": BEFORE_MS["k6"]}
+    require_equal("K6 at bench.py's shape",
+                  poly_cuda.coset_extrapolate_fold(bench_b, bench_w),
+                  poly_cuda.coset_extrapolate_fold_plain(bench_b, bench_w))
+    shapes = {"k6": [[1, POLY_BENCH_N, POLY_BENCH_POINTS]]}
     xw = gf.from_u64(xpts).cuda()
-    stark = {}
-    for label, x in (("base_coeffs", gf.from_u64(trace).cuda()),
-                     ("xfe_coeffs", gf_ext.from_u64(trace_x).cuda())):
+    for x in (gf.from_u64(trace).cuda(), gf_ext.from_u64(trace_x).cuda()):
         b = ntt.intt(x)
-        xcoef = b.dim() == 3
-        stark[label] = {
-            **kernel_row(lambda: poly_cuda.coset_extrapolate_fold(b, xw),
-                         lambda: poly_cuda.coset_extrapolate_fold_plain(
-                             b, xw, point_chunk=4), reps=5, plain_reps=1),
-            **fold_bound(b.shape[0], N, POLY_XFE_POINTS, True, xcoef),
-            "shape": list(b.shape) + [POLY_XFE_POINTS],
-            "plan": poly_cuda.fold_plan(b.shape[0], N, POLY_XFE_POINTS,
-                                        xpts=True, xcoef=xcoef)}
-        k6_before[label] = BEFORE_MS[f"k6_{label}"]
-    k6["stark_shapes"] = stark
+        require_equal(f"K6 at {tuple(b.shape)} to {POLY_XFE_POINTS} points",
+                      poly_cuda.coset_extrapolate_fold(b, xw),
+                      poly_cuda.coset_extrapolate_fold_plain(b, xw,
+                                                             point_chunk=4))
+        shapes["k6"].append(list(b.shape) + [POLY_XFE_POINTS])
     dets = edge_field(rng, (W, N))
     dets[dets == 0] = 1
     dets[3, 7] = 0
-    k7 = {**kernel_row(lambda: poly_cuda.batch_inversion(dets[:1]),
-                       lambda: poly_cuda.batch_inversion_plain(dets[:1])),
-          **bound(16 * N, IMAD_PER_MUL * 3 * N), "shape": [1, N],
-          "by_launch": inv_probe.launch_profile(
-              lambda: poly_cuda.batch_inversion(dets[:1]))}
-    k7["rows_8"] = {**kernel_row(lambda: poly_cuda.batch_inversion(dets),
-                                 lambda: poly_cuda.batch_inversion_plain(dets)),
-                    **bound(16 * W * N, IMAD_PER_MUL * 3 * W * N),
-                    "shape": [W, N],
-                    "by_launch": inv_probe.launch_profile(
-                        lambda: poly_cuda.batch_inversion(dets))}
+    for x in (dets[:1], dets):
+        require_equal(f"K7 at {tuple(x.shape)}", poly_cuda.batch_inversion(x),
+                      poly_cuda.batch_inversion_plain(x))
+    shapes["k7"] = [[1, N], [W, N]]
     a8 = edge_field(rng, (W, N * E))
     b8 = edge_field(rng, (W, N * E))
-    pw = poly_cuda.gf_pointwise
-    k8 = {**kernel_row(lambda: pw(a8, b8, "mul"),
-                       lambda: poly_cuda.gf_pointwise_plain(a8, b8, "mul")),
-          **bound(24 * W * N * E, IMAD_PER_MUL * W * N * E),
-          "op": "mul", "shape": [W, N * E]}
-    inv_in = a8[0]
-    k8["inv"] = {**kernel_row(lambda: pw(inv_in, None, "inv"),
-                              lambda: poly_cuda.gf_pointwise_plain(
-                                  inv_in, None, "inv"), plain_reps=1),
-                 **bound(16 * N * E, (IMAD_PER_SQUARE * INVERSE_SQUARES
-                                      + IMAD_PER_MUL * INVERSE_PRODUCTS)
-                         * N * E),
-                 "shape": [N * E]}
     xa, xb = a8[:6].reshape(2, 3, -1), b8[:6].reshape(2, 3, -1)
-    k8["xmul"] = {**kernel_row(lambda: pw(xa, xb, "xmul"),
-                               lambda: poly_cuda.gf_pointwise_plain(
-                                   xa, xb, "xmul")),
-                  **bound(8 * 3 * xa.numel(),
-                          IMAD_PER_MUL * 6 * xa.numel() // 3),
-                  "shape": list(xa.shape)}
+    for op, a, b in (("mul", a8, b8), ("inv", a8[0], None),
+                     ("xmul", xa, xb)):
+        require_equal(f"K8 {op} at {tuple(a.shape)}",
+                      poly_cuda.gf_pointwise(a, b, op),
+                      poly_cuda.gf_pointwise_plain(a, b, op))
+    shapes["k8"] = {"mul": [W, N * E], "inv": [N * E],
+                    "xmul": list(xa.shape)}
     del a8, b8, xa, xb
-
-    # the path's end to end: bench.py's extrapolation and the 2^22
-    # convolution, numpy in and out (host median), their device cores
-    # (device ms) and the core's profile
-    def extrapolate():
-        return poly_batch.batch_coset_extrapolate(codeword, 7, points)
-
-    def extrapolate_core():
-        return poly_cuda.coset_extrapolate_fold(ntt.intt(cw_dev), bench_w)
-
-    ca, cb = gf.from_u64(conv_a).cuda(), gf.from_u64(conv_b).cuda()
-
-    def conv_core():
-        return ntt.intt(pw(ntt.ntt(ca), ntt.ntt(cb), "mul"))
-
-    ext_times = sorted(timing.wall_times(extrapolate, 11))
-    conv_times = sorted(timing.wall_times(
-        lambda: ntt.conv_values(conv_a, conv_b), 11))
-    ends = {"extrapolate_2^18_to_2^10": {
-                "host_ms": statistics.median(ext_times),
-                "host_ms_min": ext_times[0], "host_ms_max": ext_times[-1],
-                "device_ms": cuda_ms(extrapolate_core, 11),
-                "plain_host_ms": wall_ms(lambda: poly_batch
-                                         .batch_coset_extrapolate(
-                                             codeword, 7, points, plain=True),
-                                         3)},
-            "conv_2^22": {
-                "host_ms": statistics.median(conv_times),
-                "host_ms_min": conv_times[0], "host_ms_max": conv_times[-1],
-                "device_ms": cuda_ms(conv_core, 11),
-                "plain_host_ms": wall_ms(lambda: ntt.conv_values(
-                    conv_a, conv_b, plain=True), 3)}}
     emit("poly_batch", launches=launches, outputs=sorted(got),
          pinned=sorted(PINNED_EXTRAPOLATE), kernel_cases=checked,
-         end_to_end=ends,
-         k6_ms=k6["ms"], k7_ms=k7["ms"], k8_ms=k8["ms"],
-         profile_conv=device_breakdown(conv_core),
-         profile_extrapolate=device_breakdown(extrapolate_core))
-    for name, wrapper, row, before in (
-            ("k6_coset_extrapolate_fold", "coset_extrapolate_fold", k6,
-             k6_before),
-            ("k7_batch_inversion", "batch_inversion", k7,
-             {"ms": BEFORE_MS["k7"], "rows_8_ms": BEFORE_MS["k7_rows_8"]}),
-            ("k8_gf_pointwise", "gf_pointwise", k8,
-             {"inv_ms": BEFORE_MS["k8_inv"]})):
-        emit(name, launches_on_path=launches[wrapper], **row,
-             before_redesign=before)
-    return {"launches": launches, "k6": k6, "k7": k7, "k8": k8}
+         twin_equal_at_path_shapes=shapes)
 
 
 # ---------------------------------------------------------------------------
 # the polynomial engine (math/polynomial.py) through its object API
 # ---------------------------------------------------------------------------
-
-EXTRAPOLATE_KNOB = "TWENTY_FIRST_TPU_EXTRAPOLATE_DEVICE"
-#: the crossover sweep: one-shot transforms, convolutions and batch
-#: inversions of 2^8 .. 2^22 elements; batched row products of rows of
-#: 2^(k+1) + 1 coefficients (the product tree's levels over leafs of 2^k
-#: points), 2^(k+2) elements a padded row, at 2^9 .. 2^22 elements a level
-SWEEP_LOG2 = range(8, 23)
-ROWS_SWEEP = ((4, (9, 10, 11, 12, 14, 18, 22)), (7, (10, 11, 12, 14, 18, 22)),
-              (10, (12, 13, 14, 18, 22)))
-
-
-@contextlib.contextmanager
-def polynomial_routes(limit: int, knob: str, device=None):
-    """The polynomial engine with every crossover (``ntt.HOST_NTT_MAX_ELEMS``,
-    ``HOST_CONV_MAX_ELEMS``, ``polynomial.HOST_INVERSE_MAX_ELEMS``) at
-    ``limit``, the extrapolation knob at ``knob`` and ``ntt.DEVICE`` at
-    ``device`` (unchanged if None): 0 and "1" send all of its work to the
-    device, ``sys.maxsize`` and "0" keep it on the host."""
-    from twenty_first_tpu_torch.math import ntt, polynomial
-
-    saved = (ntt.DEVICE, ntt.HOST_NTT_MAX_ELEMS, ntt.HOST_CONV_MAX_ELEMS,
-             polynomial.HOST_INVERSE_MAX_ELEMS)
-    old_knob = os.environ.get(EXTRAPOLATE_KNOB)
-    ntt.DEVICE = device or ntt.DEVICE
-    ntt.HOST_NTT_MAX_ELEMS = ntt.HOST_CONV_MAX_ELEMS = limit
-    polynomial.HOST_INVERSE_MAX_ELEMS = limit
-    os.environ[EXTRAPOLATE_KNOB] = knob
-    try:
-        yield
-    finally:
-        (ntt.DEVICE, ntt.HOST_NTT_MAX_ELEMS, ntt.HOST_CONV_MAX_ELEMS,
-         polynomial.HOST_INVERSE_MAX_ELEMS) = saved
-        os.environ.pop(EXTRAPOLATE_KNOB, None)
-        if old_knob is not None:
-            os.environ[EXTRAPOLATE_KNOB] = old_knob
-
-
-def card_routes(device=None):
-    """All of the polynomial engine's work on ``device`` (ntt.DEVICE, the
-    card, if None)."""
-    return polynomial_routes(0, "1", device)
-
-
-def host_routes():
-    """All of the polynomial engine's work on the host."""
-    return polynomial_routes(sys.maxsize, "0")
-
 
 def polynomial_pin_results(k) -> list:
     """Results of the polynomial engine at about 2^12 through package
@@ -1691,75 +1191,17 @@ def require_words(what: str, got, want) -> None:
                              f"host's differ")
 
 
-def phase_polynomial_sweep(rng) -> dict:
-    """Host wall time against the card's, numpy in and out, of one-shot
-    transforms, convolutions, batched row products and batch inversions;
-    the measured cuts beside the chosen ones."""
-    from twenty_first_tpu_torch import native
-    from twenty_first_tpu_torch.math import ntt, polynomial
-    from twenty_first_tpu_torch.probes import timing
-
-    rows = {"ntt": ({}, {}), "conv": ({}, {}), "inverse": ({}, {})}
-    for log_n in SWEEP_LOG2:
-        n = 1 << log_n
-        x, y = (rng.integers(0, P, size=n, dtype=np.uint64) for _ in "xy")
-        inv = np.where(x == 0, np.uint64(1), x)
-        for name, host, card in (
-                ("ntt", lambda: ntt.ntt_host(x),
-                 lambda: ntt.ntt_values(x, device=ntt.DEVICE)),
-                ("conv", lambda: ntt._conv_host(x, y, False, False),
-                 lambda: ntt.conv_values(x, y, device=ntt.DEVICE)),
-                ("inverse", lambda: native.batch_inverse(inv),
-                 lambda: polynomial._finv_device(inv, False))):
-            rows[name][0][n] = statistics.median(timing.wall_times(host, 5))
-            rows[name][1][n] = statistics.median(timing.wall_times(card, 5))
-    for k, logs in ROWS_SWEEP:
-        size = 1 << (k + 2)
-        row_host, row_card = {}, {}
-        for log_total in logs:
-            m = (1 << log_total) // size
-            a = rng.integers(0, P, size=(m, (1 << (k + 1)) + 1),
-                             dtype=np.uint64)
-            b = rng.integers(0, P, size=a.shape, dtype=np.uint64)
-
-            def mul_rows():
-                return polynomial.Polynomial._mul_rows(a, b, False)
-
-            with host_routes():
-                host = statistics.median(timing.wall_times(mul_rows, 3))
-                want = mul_rows()
-            with card_routes():
-                card = statistics.median(timing.wall_times(mul_rows, 3))
-                if not np.array_equal(mul_rows(), want):
-                    raise AssertionError(f"_mul_rows ({m}, {a.shape[1]}): "
-                                         "the card's and the host's differ")
-            row_host[m * size], row_card[m * size] = host, card
-        rows[f"rows_of_{(1 << (k + 1)) + 1}"] = (row_host, row_card)
-    return {"ms": {name: {"host_ms": {f"2^{n.bit_length() - 1}": v
-                                      for n, v in h.items()},
-                          "card_ms": {f"2^{n.bit_length() - 1}": v
-                                      for n, v in c.items()},
-                          "host_up_to": timing.crossover(h, c)}
-                   for name, (h, c) in rows.items()},
-            "chosen": {"HOST_NTT_MAX_ELEMS": ntt.HOST_NTT_MAX_ELEMS,
-                       "HOST_CONV_MAX_ELEMS": ntt.HOST_CONV_MAX_ELEMS,
-                       "HOST_INVERSE_MAX_ELEMS":
-                           polynomial.HOST_INVERSE_MAX_ELEMS,
-                       "_mul_rows": "the card above HOST_CONV_MAX_ELEMS "
-                                    "elements a level (m rows x the padded "
-                                    "product length)"}}
-
-
-def phase_polynomial(counters) -> dict:
+def phase_polynomial(counters) -> None:
     """The polynomial engine's object API at the shapes of bench.py:584-706
     (benches/*.rs) and the flagship step's prover width, once with the
     launch counters at 0 on its default routes; every result against the
-    same call on the host alone and by an independent check; the pin; each
-    operation's host median and device time; the crossover sweep."""
+    same call on the host alone and by an independent check; the pin with
+    every crossover at 0."""
     from twenty_first_tpu_torch import native
     from twenty_first_tpu_torch.math import ntt, poly_batch, polynomial
     from twenty_first_tpu_torch.math.b_field_element import bfe
-    from twenty_first_tpu_torch.probes import timing
+    from twenty_first_tpu_torch.probes.polynomial_probe import (card_routes,
+                                                                host_routes)
 
     if not native.available():
         raise AssertionError("polynomial: the native host core did not load")
@@ -1841,17 +1283,13 @@ def phase_polynomial(counters) -> dict:
     narrow = {"batch_coset_extrapolate_8x2^20_to_16_xfe":
               lambda: poly.batch_coset_extrapolate(seven, width,
                                                    cw8[:8 * width], xpts16)}
-    host_only_ms = {}
     for name, fn in narrow.items():
         got[name + "_at_2^16"] = fn()
     with host_routes():
         for name, fn in ops.items():
             if name in narrow:
                 name, fn = name + "_at_2^16", narrow[name]
-            t0 = time.perf_counter()
-            want = fn()
-            host_only_ms[name] = (time.perf_counter() - t0) * 1e3
-            require_words(name, got[name], want)
+            require_words(name, got[name], fn())
     xcw = poly_batch.batch_coset_extrapolate_xfe(
         cw8.reshape(8, N), 7, np.array([words(x) for x in xpts16]),
         device=ntt.DEVICE)
@@ -1906,49 +1344,15 @@ def phase_polynomial(counters) -> dict:
         pin = polynomial_pin(port_namespace())
     if pin != PINNED_POLYNOMIAL:
         raise AssertionError(f"polynomial pin {pin} != {PINNED_POLYNOMIAL}")
-
-    # device busy ms: the largest of three profiles. torch.profiler drops
-    # device records of some of these calls (a dropped record only lowers
-    # the sum), so each profile also counts its records of the port's
-    # kernels against the wrappers' launches in one call: fewer records
-    # than launches mark the time incomplete
-    timed = {}
-    for name, fn in ops.items():
-        runs = timing.wall_times(fn, 3, warmup=0)
-        for c in counters:
-            c.launches = 0
-        busy = [device_breakdown(fn) for _ in range(3)]
-        launched = sum(c.launches for c in counters) // 6  # 2 calls each
-        records = max(sum(k["calls"] for k in b["kernels"]
-                          if any(o in k["name"] for o in OWN_KERNELS))
-                      for b in busy)
-        timed[name] = {"host_ms": statistics.median(runs),
-                       "host_ms_runs": runs,
-                       "device_ms": max(b["device_busy_ms"] for b in busy),
-                       "device_ms_profiles": [b["device_busy_ms"]
-                                              for b in busy],
-                       "device_ms_complete": records >= launched,
-                       "kernel_launches": launched,
-                       "kernel_records": records,
-                       "host_only_ms": host_only_ms.get(name)}
-    sweep = phase_polynomial_sweep(rng)
     emit("polynomial", native_core=native.available(),
          native_library=native.library_path().name, launches=launches,
-         pinned=PINNED_POLYNOMIAL, ops=timed,
-         host_only_narrow_ms={n + "_at_2^16": host_only_ms[n + "_at_2^16"]
-                              for n in narrow},
-         sweep=sweep)
-    return {"launches": launches, "ops": timed, "sweep": sweep}
+         host_equal=sorted(got), pinned=PINNED_POLYNOMIAL)
 
 
 # the host layers' path: hash_batch's objects and the sample held against
 # the Python rounds, the batch of states InverseTip5 takes back through K1
 HASH_BATCH_OBJECTS = 1 << 12
 ORACLE_SAMPLE = 16
-#: verify of MERKLE_QUERIES openings when the scalar Tip5 ran only its
-#: pure-Python rounds (NVIDIA H100 80GB HBM3 host, 700.00 W card), the
-#: yardstick of the native dispatch
-VERIFY_MS_PYTHON_ROUNDS = 1037.5
 INVERSE_STATES = 64
 
 
@@ -2022,16 +1426,14 @@ def python_rounds():
         native.available = saved
 
 
-def phase_host_layers(counters) -> dict:
+def phase_host_layers(counters) -> None:
     """The host layers a prover and a verifier call: Tip5.hash and
     hash_batch of encodings of every codec type (K1), verify of 160
     openings on the native core, MerkleTree.new on both sides of
-    HOST_MERKLE_MAX_LEAFS (K2 above it) with the crossover sweep
-    (probes/merkle_probe.py), the lattice KEM, and InverseTip5 undoing K1
-    on a batch."""
+    HOST_MERKLE_MAX_LEAFS (K2 above it), the lattice KEM, and InverseTip5
+    undoing K1 on a batch."""
     from twenty_first_tpu_torch import native
     from twenty_first_tpu_torch.math import gf, lattice
-    from twenty_first_tpu_torch.probes import merkle_probe
     from twenty_first_tpu_torch.tip5 import InverseTip5, Tip5, permutation
     from twenty_first_tpu_torch.util_types import merkle_tree
     from twenty_first_tpu_torch.util_types.merkle_tree import MerkleTree
@@ -2067,11 +1469,6 @@ def phase_host_layers(counters) -> dict:
         oracle = [Tip5.hash(v) for v in objects[:ORACLE_SAMPLE]]
     if oracle != scalar[:ORACLE_SAMPLE]:
         raise AssertionError("the native scalar hash != the Python rounds")
-    hash_batch_ms = wall_ms(lambda: Tip5.hash_batch(objects), 3)
-    t0 = time.perf_counter()
-    for v in objects:
-        Tip5.hash(v)
-    hash_host_ms = (time.perf_counter() - t0) * 1e3
     # the Merkle tree on both sides of the cut: the host route's root is
     # the native core's, K2's above the cut too
     below, counts = run_path(counters, lambda: MerkleTree.new(at_cut))
@@ -2087,17 +1484,12 @@ def phase_host_layers(counters) -> dict:
     # verify of MERKLE_QUERIES openings: the partial tree on the card
     tree = got["big"]
     proof = tree.inclusion_proof_for_leaf_indices(indices)
-    t0 = time.perf_counter()
-    verified = proof.verify(tree.root())
-    verify_ms = (time.perf_counter() - t0) * 1e3
-    if not verified:
+    if not proof.verify(tree.root()):
         raise AssertionError("verify refused an honest proof")
     # the lattice KEM
-    t0 = time.perf_counter()
     sk, pk = lattice.keygen(key_rand)
     shared, ct = lattice.enc(pk, enc_rand)
     opened = lattice.dec(sk, ct)
-    kem_ms = (time.perf_counter() - t0) * 1e3
     bad = ct.bg.elements.copy()
     bad[0, 0] ^= np.uint64(1)
     if opened != shared or lattice.dec(sk, lattice.Ciphertext(
@@ -2110,23 +1502,17 @@ def phase_host_layers(counters) -> dict:
         inv.inv_permutation()
         if [e.value() for e in inv.state] != row:
             raise AssertionError("InverseTip5 does not undo K1")
-    sweep = merkle_probe.sweep(rng)
     emit("host_layers", launches=launches, objects=len(objects),
-         hash_batch_wall_ms=hash_batch_ms,
-         hash_scalar_host_ms=hash_host_ms, oracle_sample=ORACLE_SAMPLE,
-         verify_openings=MERKLE_QUERIES, verify_host_ms=verify_ms,
-         verify_host_ms_python_rounds=VERIFY_MS_PYTHON_ROUNDS,
-         merkle_cut=cut,
-         merkle_below_k2_launches=counts["merkle_level"], kem_host_ms=kem_ms,
-         inverse_states=INVERSE_STATES, merkle_sweep=sweep)
-    return {"launches": launches, "sweep": sweep}
+         oracle_sample=ORACLE_SAMPLE, verify_openings=MERKLE_QUERIES,
+         merkle_cut=cut, merkle_below_k2_launches=counts["merkle_level"],
+         kem=True, inverse_states=INVERSE_STATES)
 
 
-# the large NTT: full-output checks against the plain twin, three-pass
-# times, and the largest length that fits the card beside its output
+# the large NTT: full-output checks against the plain twin, and the largest
+# length from NTT_LARGE_TARGET down to NTT_LARGE_LEAST that fits the card
+# beside its output
 NTT_LARGE_CHECKED = (25, 28)
-NTT_LARGE_TIMED = (25, 28, 30)
-NTT_LARGE_TARGET = 32
+NTT_LARGE_TARGET, NTT_LARGE_LEAST = 32, 31
 RANDOM_CHUNK = 1 << 26
 
 
@@ -2185,20 +1571,12 @@ def direct_ntt(x, ks, chunk: int = 1 << 24) -> list:
     return out
 
 
-def ntt_bound(n: int) -> dict:
-    """bound of the three-pass transform of n elements: three passes, each
-    reading and writing n words; n/2 log n butterfly products and 3n
-    twiddle products."""
-    log_n = n.bit_length() - 1
-    return bound(3 * 16 * n, IMAD_PER_MUL * (n // 2 * log_n + 3 * n))
-
-
-def phase_ntt_large(counters) -> dict:
+def phase_ntt_large(counters) -> None:
     """NTT lengths from 2^25 (three passes of K3): full outputs against the
-    plain twin on the card at 2^25 and 2^28, device time and peak memory at
-    2^25, 2^28 and 2^30, then the largest length that fits the card beside
-    its output, 2^32 the target: a delta's transform (X[k] = w^k), a round
-    trip, and a few outputs of random input evaluated directly."""
+    plain twin on the card at 2^25 and 2^28, then the largest length that
+    fits the card beside its output, 2^32 the target: a delta's transform
+    (X[k] = w^k), a round trip, and a few outputs of random input
+    evaluated directly."""
     from twenty_first_tpu_torch.math import gf, ntt
     from twenty_first_tpu_torch.math.b_field_element import PRIMITIVE_ROOTS
 
@@ -2211,44 +1589,24 @@ def phase_ntt_large(counters) -> dict:
         raise AssertionError(f"three transforms of 2^25 made {launches}")
     require_equal("intt(ntt(x)) 2^25", z0, x0)
     del x0, y0, z0
-    checked = {}
     for log_n in NTT_LARGE_CHECKED:
         n = 1 << log_n
         x = random_on_card(n, log_n).view(1, n)
         y = ntt.ntt(x)
-        checked[f"2^{log_n}"] = {
-            "ntt": require_equal(f"ntt 2^{log_n}", y, ntt.ntt(x, plain=True)),
-            "intt": require_equal(f"intt 2^{log_n}", ntt.intt(y),
-                                  ntt.intt(y, plain=True))}
-        del x, y
-    timed = {}
-    for log_n in NTT_LARGE_TIMED:
-        n = 1 << log_n
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        x = random_on_card(n, log_n)
-        y = torch.empty_like(x)
-        ms = cuda_ms(lambda: ntt.ntt(x, out=y), 5)
-        inv_ms = cuda_ms(lambda: ntt.intt(x, out=y), 5)
-        timed[f"2^{log_n}"] = {
-            "ms": ms, "intt_ms": inv_ms,
-            "peak_bytes": torch.cuda.max_memory_allocated() - base,
-            **ntt_bound(n)}
+        require_equal(f"ntt 2^{log_n}", y, ntt.ntt(x, plain=True))
+        require_equal(f"intt 2^{log_n}", ntt.intt(y), ntt.intt(y, plain=True))
         del x, y
     # the largest length that fits: input, output and a check's chunks
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
-    fits = [k for k in range(NTT_LARGE_TARGET, NTT_LARGE_TIMED[-1], -1)
+    fits = [k for k in range(NTT_LARGE_TARGET, NTT_LARGE_LEAST - 1, -1)
             if 2 * 8 * (1 << k) + (4 << 30) <= free]
     if not fits:
-        raise AssertionError(f"no length above 2^{NTT_LARGE_TIMED[-1]} fits "
+        raise AssertionError(f"no length from 2^{NTT_LARGE_LEAST} fits "
                              f"{free} free bytes")
     log_n = fits[0]
     n = 1 << log_n
     w = PRIMITIVE_ROOTS[n]
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
     y = torch.empty(n, dtype=torch.int64, device="cuda")
     x = torch.zeros(n, dtype=torch.int64, device="cuda")
     x[1] = 1
@@ -2261,7 +1619,7 @@ def phase_ntt_large(counters) -> dict:
         require_equal(f"delta 2^{log_n} X[k+1] = X[k] w from {s}",
                       y[s + 1:s + 1 + m], gf.mul_const(y[s:s + m], w))
     x = random_on_card(n, log_n)
-    ms = cuda_ms(lambda: ntt.ntt(x, out=y), 3)
+    ntt.ntt(x, out=y)
     ks = [0, 1, n // 2 + 12345, n - 1]
     direct = direct_ntt(x, ks)
     if direct != [int(y[k]) & ((1 << 64) - 1) for k in ks]:
@@ -2270,19 +1628,15 @@ def phase_ntt_large(counters) -> dict:
     for s, chunk in random_chunks(n, log_n):
         require_equal(f"intt(ntt(x)) 2^{log_n} from {s}",
                       x[s:s + chunk.numel()], chunk)
-    peak = torch.cuda.max_memory_allocated() - base
     del x, y
     torch.cuda.empty_cache()
-    largest = {"log_n": log_n, "ms": ms, "peak_bytes": peak,
-               "k3_launches_a_call": counts["ntt_local_pass"],
-               "direct_indices": ks, **ntt_bound(n)}
-    emit("ntt_large", launches=launches, checked=checked, timed=timed,
-         largest=largest,
+    emit("ntt_large", launches=launches,
+         twin_equal=[f"2^{k}" for k in NTT_LARGE_CHECKED],
+         largest={"log_n": log_n,
+                  "k3_launches_a_call": counts["ntt_local_pass"],
+                  "direct_indices": ks},
          left_out=[f"2^{k}" for k in range(NTT_LARGE_TARGET, log_n, -1)],
          free_bytes=free)
-    return {"launches": launches,
-            "three_pass": {k: timed[k] for k in ("2^25", "2^30")},
-            "largest": largest}
 
 
 # the distributed phase (parallel/): the NTT and the LDE commit at world 1
@@ -2351,44 +1705,28 @@ def dist_rank(mesh) -> dict:
     """One rank of a multi-rank mesh: the distributed NTT of
     dist_input(DIST_GLOO_NTT_LOG_N), the Merkle root of the step's leaf
     digests, the LDE commit of dist_input(DIST_GLOO_LDE_LOG_N) and
-    PINNED_DIST, with the host ms of each (medians of 5)."""
+    PINNED_DIST."""
     from twenty_first_tpu_torch.math import gf
-    from twenty_first_tpu_torch.parallel import (dist_merkle, dist_ntt,
-                                                 mesh as mesh_mod, pipeline)
-    from twenty_first_tpu_torch.probes import timing
+    from twenty_first_tpu_torch.parallel import dist_merkle, dist_ntt, pipeline
 
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "twenty_first_tpu")]
     if foreign:
         raise AssertionError(f"rank {mesh.rank} imported {foreign[:5]}")
-    log_n, lde_log_n = DIST_GLOO_NTT_LOG_N, DIST_GLOO_LDE_LOG_N
-    n1, n2 = dist_ntt._split_sizes(log_n)
-    x = dist_input(log_n)
-    ntt_pin = pin_of(dist_ntt.distributed_ntt_values(x, mesh))
-    block = mesh_mod.shard_host_array(mesh, (None, mesh_mod.AXIS),
-                                      x.reshape(n2, n1))
-    leafs = slice_leaf_digests()
-    root = dist_merkle.distributed_merkle_root(gf.to_u64(leafs), mesh)
-    leaf_block = leafs.view(mesh.size, -1, 5)[mesh.rank]
-    lde = pipeline.dist_lde_commit_values(dist_input(lde_log_n), mesh)
-    l1, l2 = dist_ntt._split_sizes(lde_log_n)
-    lde_block = mesh_mod.shard_host_array(
-        mesh, (None, mesh_mod.AXIS), dist_input(lde_log_n).reshape(l2, l1))
-    commit = pipeline.make_dist_lde_commit(mesh, lde_log_n)
-    log_leafs = leafs.shape[0].bit_length() - 1
+    ntt_pin = pin_of(dist_ntt.distributed_ntt_values(
+        dist_input(DIST_GLOO_NTT_LOG_N), mesh))
+    root = dist_merkle.distributed_merkle_root(
+        gf.to_u64(slice_leaf_digests()), mesh)
+    lde = pipeline.dist_lde_commit_values(dist_input(DIST_GLOO_LDE_LOG_N),
+                                          mesh)
     return {
         "rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device),
         "ntt_pin": ntt_pin, "root": [int(v) for v in root.to_array()],
         "lde_commit": [int(v) for v in lde.to_array()],
-        "pins": dist_pins(mesh),
-        "ntt_wall_ms": timing.wall_ms(
-            lambda: dist_ntt.distributed_ntt(block, mesh), 5),
-        "merkle_root_wall_ms": timing.wall_ms(
-            lambda: dist_merkle._root(leaf_block, mesh, log_leafs), 5),
-        "lde_commit_wall_ms": timing.wall_ms(lambda: commit(lde_block), 5)}
+        "pins": dist_pins(mesh)}
 
 
-def phase_distributed(counters) -> dict:
+def phase_distributed(counters) -> None:
     """The distributed layer (parallel/): at world 1 over NCCL in this
     process at full width, each result against the single-device path on
     the card; then DIST_GLOO_RANKS gloo ranks sharing the card, each result
@@ -2398,13 +1736,11 @@ def phase_distributed(counters) -> dict:
 
     from twenty_first_tpu_torch.entry import dryrun_multichip
     from twenty_first_tpu_torch.math import gf, ntt
-    from twenty_first_tpu_torch.ops import tip5_commit
     from twenty_first_tpu_torch.parallel import (dist_merkle, dist_mmr,
                                                  dist_ntt, mesh as mesh_mod,
                                                  pipeline)
     from twenty_first_tpu_torch.util_types.mmr import MmrAccumulator
 
-    t0 = time.perf_counter()
     mesh = mesh_mod.make_mesh(1)
     if (mesh.backend, mesh.device.type) != ("nccl", "cuda"):
         raise AssertionError(f"world 1 on {mesh.backend}, {mesh.device}")
@@ -2413,9 +1749,7 @@ def phase_distributed(counters) -> dict:
     x = gf.from_u64(dist_input(log_n)).cuda()
     block = x.view(n2, n1)  # world 1: every column
     commit = pipeline.make_dist_lde_commit(mesh, log_n)
-    leafs = slice_leaf_digests()
-    leafs_host = gf.to_u64(leafs)
-    log_leafs = leafs.shape[0].bit_length() - 1
+    leafs_host = gf.to_u64(slice_leaf_digests())
     # the main path, once, with every launch counter at 0: the LDE commit of
     # 2^24 coefficients and the Merkle root of the step's 2^22 leafs
     (root, slice_root), launches = run_path(counters, lambda: (
@@ -2451,21 +1785,6 @@ def phase_distributed(counters) -> dict:
                         dist_ntt.distributed_ntt(block, mesh, inverse,
                                                  natural, chunks, plain=True))
                 del got
-    timed = {"distributed_ntt_ms": cuda_ms(
-                 lambda: dist_ntt.distributed_ntt(block, mesh), 10),
-             "distributed_ntt_wall_ms": wall_ms(
-                 lambda: dist_ntt.distributed_ntt(block, mesh), 10),
-             "distributed_ntt_chunks1_ms": cuda_ms(
-                 lambda: dist_ntt.distributed_ntt(block, mesh,
-                                                  a2a_chunks=1), 10),
-             "ntt_ms": cuda_ms(lambda: ntt.ntt(x), 10),
-             "ntt_wall_ms": wall_ms(lambda: ntt.ntt(x), 10),
-             "lde_commit_ms": cuda_ms(lambda: commit(block), 5),
-             "lde_commit_wall_ms": wall_ms(lambda: commit(block), 5),
-             "merkle_root_ms": cuda_ms(
-                 lambda: dist_merkle._root(leafs, mesh, log_leafs), 10),
-             "single_device_tree_ms": cuda_ms(
-                 lambda: tip5_commit.reduce_layers(leafs, log_leafs), 10)}
     del want, want_inv, x, block
     # columns and rows longer than one pass of K3: two passes each
     big = 1 << DIST_TWO_PASS_LOG_N
@@ -2482,9 +1801,6 @@ def phase_distributed(counters) -> dict:
                 xb.view(b2, b1), mesh, inverse, natural_output=True,
                 plain=True))
         del got
-    timed["two_pass_ms"] = cuda_ms(
-        lambda: dist_ntt.distributed_ntt(xb.view(b2, b1), mesh), 5)
-    timed["two_pass_single_device_ms"] = cuda_ms(lambda: ntt.ntt(xb), 5)
     del xb
     vals = np.random.default_rng(DIST_SEED).integers(
         0, P, size=(1 << DIST_XFE_LOG_N, 3), dtype=np.uint64)
@@ -2525,7 +1841,6 @@ def phase_distributed(counters) -> dict:
         if got != world1[key]:
             raise AssertionError(f"world 1 {key} {got} != the single-device "
                                  f"path's {world1[key]}")
-    del leafs
     torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
     multi = {f"gloo_{DIST_GLOO_RANKS}_ranks_one_card": mesh_mod.launch(
@@ -2542,22 +1857,16 @@ def phase_distributed(counters) -> dict:
                     raise AssertionError(f"{name} rank {r['rank']}: {key} "
                                          f"{r[key]} != world 1's {value}")
     dist.destroy_process_group()
-    emit("distributed", seconds=time.perf_counter() - t0,
-         world1_backend=mesh.backend, log_n=log_n,
+    emit("distributed", world1_backend=mesh.backend, log_n=log_n,
          launches=launches, k1_launches_lde_commit=launches["tip5_permute"],
-         checked=checked, timed=timed, two_pass_log_n=DIST_TWO_PASS_LOG_N,
+         checked=checked, two_pass_log_n=DIST_TWO_PASS_LOG_N,
          xfe_log_n=DIST_XFE_LOG_N, mmr_leafs=MMR_LEAFS,
          mmr_append=MMR_APPEND, pinned_dist=True, dryrun_multichip_1=True,
-         multi_rank={name: [
-             {k: r[k] for k in ("rank", "backend", "device", "ntt_wall_ms",
-                                "merkle_root_wall_ms", "lde_commit_wall_ms")}
-             for r in ranks] for name, ranks in multi.items()},
+         multi_rank={name: [{k: r[k] for k in ("rank", "backend", "device")}
+                            for r in ranks]
+                     for name, ranks in multi.items()},
          nccl_multi_card=(sorted(k for k in multi if k.startswith("nccl"))
-                          if cards >= 2 else "not run: 1 card"),
-         multi_rank_note="gloo ranks share one card and stage each "
-                         "collective through host memory: their times are "
-                         "host-staged wall ms")
-    return {"launches": launches}
+                          if cards >= 2 else "not run: 1 card"))
 
 
 # the scrambled route's check of K3's order modes in two passes: a 2^24
@@ -2595,8 +1904,7 @@ def scrambled_pass_shapes() -> dict:
 def scrambled_k3_checks(rng) -> dict:
     """K3's order modes against the twin on the card: every length 2^1..2^12
     in both layouts and modes, with and without a diagonal and a scale, in
-    place too; then each of the scrambled commit's four pass shapes, timed
-    beside the twin with its bound."""
+    place too; then each of the scrambled commit's four pass shapes."""
     from twenty_first_tpu_torch.math import gf, ntt
     from twenty_first_tpu_torch.ops import ntt_cuda
 
@@ -2637,77 +1945,25 @@ def scrambled_k3_checks(rng) -> dict:
         x.copy_(random_field(rng, tuple(x.shape)))
         tw = gf.from_u64(ntt.stage_twiddles(log_t, inverse)).cuda()
         kw = {"diag": d, mode: True}
-        err = require_equal(f"K3 {mode} at {name} {tuple(x.shape)}",
-                            ntt_cuda.ntt_local_pass(x, tw, out=out, **kw),
-                            ntt_cuda.ntt_local_pass_plain(x, tw, **kw))
+        require_equal(f"K3 {mode} at {name} {tuple(x.shape)}",
+                      ntt_cuda.ntt_local_pass(x, tw, out=out, **kw),
+                      ntt_cuda.ntt_local_pass_plain(x, tw, **kw))
         checked += 1
-        b, t, c = x.shape
-        products = b * c * (t // 2) * log_t + (x.numel() if d is not None
-                                               else 0)
-        shapes[name] = {
-            "shape": list(x.shape), "strides_in": list(x.stride()),
-            "strides_out": list(out.stride()), "mode": mode,
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: ntt_cuda.ntt_local_pass(x, tw, out=out,
-                                                          **kw), 10),
-            "wall_ms": wall_ms(lambda: ntt_cuda.ntt_local_pass(
-                x, tw, out=out, **kw), 10),
-            "plain_ms": cuda_ms(lambda: ntt_cuda.ntt_local_pass_plain(
-                x, tw, **kw), 3),
-            **bound(16 * x.numel() + (8 * d.numel() if d is not None else 0),
-                    IMAD_PER_MUL * products)}
+        shapes[name] = {"shape": list(x.shape), "strides_in": list(x.stride()),
+                        "strides_out": list(out.stride()), "mode": mode}
     return {"checked": checked, "passes": shapes}
 
 
-def natural_transforms(step, trace):
-    """The natural step's two transforms alone (K3's four passes): the
-    iNTT with its coset scaling into the padded planes' head, the NTT."""
-    from twenty_first_tpu_torch.math import ntt
-
-    padded = torch.zeros((W, N * E), dtype=torch.int64, device="cuda")
-    inv, fwd = step._ntt_tables("inv", N, True), step._ntt_tables(
-        "fwd", N * E, False)
-
-    def run():
-        ntt.ntt(trace, inverse=True, tables=inv, post=step.offset_powers,
-                out=padded[:, :N])
-        return ntt.ntt(padded, tables=fwd)
-
-    return run
-
-
-def scrambled_transforms(trace, tables):
-    """The scrambled route's two transforms alone (K3's four passes): the
-    DIF iNTT into the padded layout, the no-reverse NTT."""
-    from twenty_first_tpu_torch.math import ntt
-
-    l1, l2 = ntt.four_step_split(N.bit_length() - 1)
-    log_e = E.bit_length() - 1
-    d1, pw_scr, d4 = tables
-    padded = torch.zeros((W, 1 << l1, E, 1 << l2), dtype=torch.int64,
-                         device="cuda")
-
-    def run():
-        ntt._four_step(trace, (l1, l2), True, d1, order="dif",
-                       post_diag=pw_scr, out=padded[:, :, 0])
-        return ntt._four_step(padded.view(W, N * E), (l1 + log_e, l2), False,
-                              d4, order="norev")
-
-    return run
-
-
-def phase_scrambled(counters) -> dict:
+def phase_scrambled(counters) -> None:
     """The JAX package's other route of the flagship step, the scrambled
     LDE commit (K3 under its order modes, K1, K2), at full width: K3's
     modes against the twin, ``four_step_ntt_scrambled`` at 2^24 both ways
     and the two-pass modes at a (13, 11) split against ``ntt()`` through
     the scrambled index, the commit's root equal to SLICE_ROOT and its leaf
-    digests to the natural step's, then both routes timed in turns."""
+    digests to the natural step's."""
     from twenty_first_tpu_torch.math import gf, ntt
     from twenty_first_tpu_torch.parallel import pipeline
-    from twenty_first_tpu_torch.probes import timing
 
-    t0 = time.perf_counter()
     rng = np.random.default_rng(13)
     k3 = scrambled_k3_checks(rng)
     checked = {}
@@ -2770,43 +2026,14 @@ def phase_scrambled(counters) -> dict:
     checked["root_plain"] = require_equal(
         "scrambled root vs plain on the card", root,
         pipeline.trace_lde_commit_scrambled(trace, E, tables, plain=True))
-    # both routes timed in turns: host medians of 21 calls interleaved,
-    # device ms natural, scrambled, scrambled, natural, each route's two
-    # transforms (K3's four passes, nothing else) the same way; the peak
-    # memory a call adds to what is allocated before it
-    routes = {"natural": lambda: step(trace), "scrambled": scrambled}
-    transforms = {"natural": natural_transforms(step, trace),
-                  "scrambled": scrambled_transforms(trace, tables)}
-    walls = {k: [] for k in routes}
-    for fn in routes.values():
-        fn()
-    for _ in range(21):
-        for k, fn in routes.items():
-            walls[k] += timing.wall_times(fn, 1, warmup=0)
-    timed = {k: {"wall_ms": statistics.median(v), "wall_ms_min": min(v),
-                 "wall_ms_max": max(v), "runs": len(v)}
-             for k, v in walls.items()}
-    for k in ("natural", "scrambled", "scrambled", "natural"):
-        timed[k].setdefault("ms", []).append(cuda_ms(routes[k], 21))
-        timed[k].setdefault("k3_passes_ms", []).append(
-            cuda_ms(transforms[k], 21))
-    for k, fn in routes.items():
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        timed[k]["peak_bytes_added"] = torch.cuda.max_memory_allocated() - before
-        timed[k]["profile"] = device_breakdown(fn)
-    emit("scrambled", seconds=time.perf_counter() - t0, w=W, n=N,
-         expansion=E, root=gf.to_u64(root)[0].tolist(), launches=launches,
+    emit("scrambled", w=W, n=N, expansion=E,
+         root=gf.to_u64(root)[0].tolist(), launches=launches,
          k3_checked=k3["checked"], k3_passes=k3["passes"], checked=checked,
-         two_pass_split=list(split), timed=timed)
-    return {"launches": launches, "passes": k3["passes"]}
+         two_pass_split=list(split))
 
 
-def phase_probe_pass(rng) -> dict:
-    """K4 against its twin, then the pass probe's path (K3 and K4)."""
+def phase_probe_pass(rng) -> None:
+    """K4 against its twin, then the pass probe's variants (K3 and K4)."""
     from twenty_first_tpu_torch.math import gf, ntt
     from twenty_first_tpu_torch.ops import ntt_cuda, probe_cuda
     from twenty_first_tpu_torch.probes import pass_probe
@@ -2835,34 +2062,36 @@ def phase_probe_pass(rng) -> dict:
             require_equal(f"K4 chain == pass log_t={log_t} {layout}",
                           pass_probe.run_pass(x, tw, "rt", 0),
                           pass_probe.plain_pass(x, tw))
-    # the probe's path: every spec over 2^24 elements
-    results, launches = run_path(
-        (ntt_cuda.ntt_local_pass, probe_cuda.ntt_stage),
-        lambda: pass_probe.run(pass_probe.DEFAULT_SPECS))
+    # the probe's path: every spec's variant over 2^24 elements against
+    # the plain pass
+    inputs = {}
+
+    def variants():
+        for spec in pass_probe.DEFAULT_SPECS:
+            log_t, tc, variant = pass_probe.parse_spec(spec)
+            if log_t not in inputs:
+                inputs[log_t] = pass_probe.make_input(log_t)
+            x = inputs[log_t]
+            tw = gf.from_u64(ntt.stage_twiddles(log_t, False)).cuda()
+            require_equal(f"pass probe {spec}",
+                          pass_probe.run_pass(x, tw, variant, tc),
+                          pass_probe.plain_pass(x, tw))
+
+    launches = run_path((ntt_cuda.ntt_local_pass, probe_cuda.ntt_stage),
+                        variants)[1]
     require_launched("probe_pass", launches)
     # K4 alone at the probe's shape: one middle stage of t = 2^12
-    x = pass_probe.make_input(12)
+    x = inputs[12]
     tw = gf.from_u64(ntt.stage_twiddles(12, False)).cuda()
-    err = require_equal("K4 at (2^12, 2^12)", probe_cuda.ntt_stage(x, tw, 6),
-                        probe_cuda.ntt_stage_plain(x, tw, 6))
-    ms = cuda_ms(lambda: probe_cuda.ntt_stage(x, tw, 6), 10)
-    host_ms = wall_ms(lambda: probe_cuda.ntt_stage(x, tw, 6), 10)
-    plain_ms = cuda_ms(lambda: probe_cuda.ntt_stage_plain(x, tw, 6), 3)
-    ng = {r["spec"]: r["launches_per_pass"] for r in results
-          if r["variant"] == "ng"}
+    require_equal("K4 at (2^12, 2^12)", probe_cuda.ntt_stage(x, tw, 6),
+                  probe_cuda.ntt_stage_plain(x, tw, 6))
     emit("probe_pass", stages_checked=checked, launches=launches,
-         k4_stage_ms=ms, k4_stage_plain_ms=plain_ms,
-         specs={r["spec"]: {k: r[k] for k in ("ms", "wall_ms", "gelems_per_s",
-                                              "tb_per_s", "launches_per_pass")}
-                for r in results})
-    return {"launches": launches, "k3_per_tile_launches": ng,
-            "k4": {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
-                   "plain_ms": plain_ms,
-                   **bound(16 * x.numel(), IMAD_PER_MUL * x.numel() // 2)}}
+         specs=list(pass_probe.DEFAULT_SPECS))
 
 
-def phase_probe_alu(rng) -> dict:
-    """K5 in each form against its twin, then the ALU probe's path."""
+def phase_probe_alu(rng) -> None:
+    """K5 in each form against its twin: at the ALU probe's shape at four
+    chain lengths, and at its full shape at the longest."""
     from twenty_first_tpu_torch.math import gf
     from twenty_first_tpu_torch.ops import probe_cuda
     from twenty_first_tpu_torch.probes import alu_probe
@@ -2875,247 +2104,62 @@ def phase_probe_alu(rng) -> dict:
                      endpoint=False)
     a[0, :49], b[0, :49] = np.repeat(edges, 7), np.tile(edges, 7)
     a, b = gf.from_u64(a).cuda(), gf.from_u64(b).cuda()
-    for op in probe_cuda.CHAIN_OPS:
-        for k in (1, 2, 16, alu_probe.K_HI):
-            want = probe_cuda.gf_chain_plain(a, b, op, k)
-            for form in probe_cuda.CHAIN_FORMS:
-                require_equal(f"K5 {op} {form} k={k}",
-                              probe_cuda.gf_chain(a, b, op, k, form), want)
-    results, launches = run_path((probe_cuda.gf_chain,), alu_probe.run)
-    require_launched("probe_alu", launches)
-    # K5 alone at the full shape: one mul_lazy chain of K_HI steps, in the
-    # carry-chain form and beside it in the C form
     fa, fb = alu_probe.operands(alu_probe.FULL_SHAPE)
-    k = alu_probe.K_HI
-    want = probe_cuda.gf_chain_plain(fa, fb, "mul_lazy", k)
-    forms_ms = {}
-    for form in probe_cuda.CHAIN_FORMS:
-        err = require_equal(f"K5 mul_lazy {form} k={k} at 2^22",
-                            probe_cuda.gf_chain(fa, fb, "mul_lazy", k, form),
-                            want)
-        forms_ms[form] = cuda_ms(
-            lambda: probe_cuda.gf_chain(fa, fb, "mul_lazy", k, form), 10)
-    ms = forms_ms["cc"]
-    host_ms = wall_ms(lambda: probe_cuda.gf_chain(fa, fb, "mul_lazy", k), 10)
-    plain_ms = cuda_ms(lambda: probe_cuda.gf_chain_plain(fa, fb, "mul_lazy",
-                                                        k), 3)
-    sass = {f"{r['op']} {r['form']}": r["sass"] for r in results}
-    emit("probe_alu", launches=launches, k5_ms=ms, k5_forms_ms=forms_ms,
-         k5_plain_ms=plain_ms, before_redesign={"ms": BEFORE_MS["k5"]},
-         sass=sass, per_step={f"{r['op']} {r['form']} {r['shape']}": {
-             key: r.get(key) for key in (
-                 "ms_per_step", "sm_cycles_per_warp_step", "gops_per_s",
-                 "g_instructions_per_s", "share_of_dispatch_rate",
-                 "g_imad_per_s", "share_of_imad_rate", "plain_over_kernel")}
-             for r in results})
-    n = fa.numel()
-    # the C form's issue rate, which the Tip5 issue bounds have always used
-    rates = [r.get("g_instructions_per_s") for r in results
-             if r["op"] == "mul_lazy" and r["form"] == "c"
-             and r["shape"] == list(alu_probe.FULL_SHAPE)]
-    return {"launches": launches,
-            "instructions_per_s": rates[0] * 1e9 if rates and isinstance(
-                rates[0], float) else None,
-            "k5": {"max_abs_err": err, "ms": ms, "wall_ms": host_ms,
-                   "plain_ms": plain_ms, "form": "cc",
-                   "forms_ms": forms_ms,
-                   **bound(24 * n, IMAD_PER_MUL * k * n)}}
+    k_hi = alu_probe.K_HI
 
+    def chains():
+        for op in probe_cuda.CHAIN_OPS:
+            for k in (1, 2, 16, k_hi):
+                want = probe_cuda.gf_chain_plain(a, b, op, k)
+                for form in probe_cuda.CHAIN_FORMS:
+                    require_equal(f"K5 {op} {form} k={k}",
+                                  probe_cuda.gf_chain(a, b, op, k, form),
+                                  want)
+        # at the full shape: one mul_lazy chain of K_HI steps in each form
+        want = probe_cuda.gf_chain_plain(fa, fb, "mul_lazy", k_hi)
+        for form in probe_cuda.CHAIN_FORMS:
+            require_equal(f"K5 mul_lazy {form} k={k_hi} at 2^22",
+                          probe_cuda.gf_chain(fa, fb, "mul_lazy", k_hi, form),
+                          want)
 
-def phase_tip5_counts(instructions_per_s, stats) -> None:
-    """Registers, spills, resident warps and SASS per permutation of the
-    Tip5 kernels (``stats``: probes/tip5_probe.py), by kernel."""
-    emit("tip5_sass", instructions_per_s=instructions_per_s, **{
-        name: {k: v for k, v in st.items() if k != "round_opcodes"}
-        for name, st in stats.items()})
+    launches = run_path((probe_cuda.gf_chain,), chains)[1]
+    require_launched("probe_alu", launches)
+    emit("probe_alu", launches=launches, ops=list(probe_cuda.CHAIN_OPS),
+         forms=list(probe_cuda.CHAIN_FORMS), k=[1, 2, 16, k_hi],
+         full_shape=list(alu_probe.FULL_SHAPE))
 
 
 def main() -> None:
-    smi = check_device()
+    check_device()
     phase_build()
-    from twenty_first_tpu_torch.ops import ntt_cuda, tip5_cuda
-    from twenty_first_tpu_torch.math import ntt
-    from twenty_first_tpu_torch.probes import pass_probe, tip5_probe
+    from twenty_first_tpu_torch.ops import ntt_cuda, poly_cuda, tip5_cuda
     from twenty_first_tpu_torch.tip5.permutation import tip5_tables
 
     rng = np.random.default_rng(0)
     tables = tip5_tables()
-    k1 = phase_k1(rng, tables)
-    k2 = phase_k2(rng, tables)
-    k3 = phase_k3(rng)
+    phase_k1(rng, tables)
+    phase_k2(rng, tables)
+    phase_k3(rng)
     phase_pinned_roots()
     counters = (tip5_cuda.tip5_permute, tip5_cuda.merkle_level,
                 tip5_cuda.merkle_commit, ntt_cuda.ntt_local_pass)
-    launches, slice_root = phase_slice(counters)
+    slice_root = phase_slice(counters)
     phase_entry()
-    merkle = phase_merkle_objects(counters, slice_root, k2["tail_ms"])
-    batch = phase_tip5_batch(rng, tables)
-    batch["absorb_mode"] = phase_k1_absorb(tables)
-    batch["absorb_lane_mode"] = phase_k1_absorb_lanes(tables)
-    stats = tip5_probe.kernel_stats()
-    mxu = phase_tip5_mxu(tables, stats)
-    from twenty_first_tpu_torch.ops import poly_cuda
-
+    phase_merkle_objects(counters, slice_root)
+    phase_tip5_batch(rng, tables)
+    phase_k1_absorb(tables)
+    phase_k1_absorb_lanes(tables)
+    phase_tip5_mxu(tables)
     poly_counters = (ntt_cuda.ntt_local_pass, poly_cuda.coset_extrapolate_fold,
                      poly_cuda.batch_inversion, poly_cuda.gf_pointwise)
-    poly = phase_poly_batch(rng, poly_counters)
-    engine = phase_polynomial(poly_counters)["launches"]
-    host = phase_host_layers((tip5_cuda.tip5_permute, tip5_cuda.merkle_level))
-    large = phase_ntt_large((ntt_cuda.ntt_local_pass,))
-    dist = phase_distributed(counters)["launches"]
-    scrambled = phase_scrambled(counters)
-    scr = scrambled["launches"]
-    probe_pass = phase_probe_pass(rng)
-    probe_alu = phase_probe_alu(rng)
-    rate = probe_alu["instructions_per_s"]
-    phase_tip5_counts(rate, stats)
-    k1.update(tip5_probe.counts(stats, "tip5_permute", N * E, rate))
-    for mode, name in (("absorb_mode", "tip5_absorb"),
-                       ("absorb_lane_mode", "tip5_absorb_lanes")):
-        batch[mode].update(tip5_probe.counts(stats, name,
-                                             batch[mode]["perms"], rate))
-    mxu.update(tip5_probe.counts(stats, "tip5_permute_mma", N * E, rate))
-    log_n1, log_n2 = ntt.four_step_split((N * E).bit_length() - 1)
-    k3_stats = pass_probe.kernel_stats(log_n2, 1 << log_n1)
-    emit("k3_sass", **k3_stats)
-    k3.update({k: k3_stats.get(k, "not measured") for k in (
-        "elements_per_thread", "registers", "spill_bytes", "threads",
-        "resident_warps_per_sm", "sass_per_butterfly")})
-    batch["trace"].update(tip5_probe.counts(stats, "tip5_trace", TRACE_STATES,
-                                            rate))
-    # the counts of the full-width level kernel, which does all but the
-    # tail's permutations; the fused tail's beside them
-    perms = k2["perms"]
-    k2.update(tip5_probe.counts(stats, "merkle_level", perms["merkle_level"],
-                                rate),
-              counts_of="merkle_level",
-              fused_kernel=tip5_probe.counts(stats, "merkle_commit",
-                                             perms["merkle_commit"], rate),
-              issue_bound_ms=tip5_probe.issue_bound_ms(stats, perms, rate))
-    pallas = "twenty_first_tpu/ops/tip5_pallas.py"
-    kernels = [
-        {"name": "tip5_permute", "route": "cuda",
-         "source": "twenty_first_tpu_torch/csrc/tip5.cu",
-         "replaces": f"{pallas}:252 (T1); {pallas}:102 (T4); "
-                     f"{pallas}:383 (T5)",
-         "launches": launches["tip5_permute"]
-                     + merkle["tip5_permute"]
-                     + batch["launches"]["tip5_permute"]
-                     + host["launches"]["tip5_permute"]
-                     + dist["tip5_permute"] + scr["tip5_permute"],
-         "launches_by_path": {"slice": launches["tip5_permute"],
-                              "merkle_objects": merkle["tip5_permute"],
-                              "tip5_batch": batch["launches"]["tip5_permute"],
-                              "host_layers": host["launches"]["tip5_permute"],
-                              "distributed": dist["tip5_permute"],
-                              "scrambled": scr["tip5_permute"]},
-         **k1, **NO_LIBRARY, "trace_mode": batch["trace"],
-         "absorb_mode": batch["absorb_mode"],
-         "absorb_lane_mode": batch["absorb_lane_mode"]},
-        {"name": "merkle_commit", "route": "cuda",
-         "source": "twenty_first_tpu_torch/csrc/tip5.cu",
-         "replaces": f"{pallas}:262 (T2)",
-         "launches": sum(path[k] for path in (launches, merkle, dist, scr,
-                                              mxu["launches"])
-                         for k in ("merkle_level", "merkle_commit"))
-                     + host["launches"]["merkle_level"],
-         "launches_by_path": {
-             **{path: {k: counts[k] for k in ("merkle_level", "merkle_commit")}
-                for path, counts in (("slice", launches),
-                                     ("merkle_objects", merkle),
-                                     ("distributed", dist),
-                                     ("scrambled", scr),
-                                     ("tip5_mxu", mxu["launches"]))},
-             "host_layers": {"merkle_level": host["launches"]["merkle_level"]}},
-         "merkle_sweep_host_up_to": host["sweep"]["host_up_to"],
-         **k2, **NO_LIBRARY},
-        {"name": "tip5_permute_mma", "route": "cuda",
-         "source": "twenty_first_tpu_torch/csrc/tip5_mma.cu",
-         "replaces": "twenty_first_tpu/ops/tip5_mxu.py:96 (_mds_mxu), :143 "
-                     "(permutation_dense); plain jnp on the MXU, no Pallas "
-                     "kernel",
-         "launches": mxu["launches"]["tip5_permute_mma"],
-         "launches_by_path": {
-             "tip5_mxu": mxu["launches"]["tip5_permute_mma"]},
-         **{k: v for k, v in mxu.items() if k != "launches"}, **NO_LIBRARY},
-        {"name": "ntt_local_pass", "route": "cuda",
-         "source": "twenty_first_tpu_torch/csrc/ntt.cu",
-         "replaces": "twenty_first_tpu/ops/ntt_pallas.py:47 (T3); "
-                     "scripts/prof_pallas_pass.py:53 (T6); "
-                     "scripts/prof_pallas_pass.py:110 (T7)",
-         "launches": launches["ntt_local_pass"]
-                     + merkle["ntt_local_pass"]
-                     + poly["launches"]["ntt_local_pass"]
-                     + engine["ntt_local_pass"]
-                     + large["launches"]["ntt_local_pass"]
-                     + dist["ntt_local_pass"]
-                     + scr["ntt_local_pass"]
-                     + probe_pass["launches"]["ntt_local_pass"],
-         "launches_by_path": {
-             "slice": launches["ntt_local_pass"],
-             "merkle_objects": merkle["ntt_local_pass"],
-             "poly_batch": poly["launches"]["ntt_local_pass"],
-             "polynomial": engine["ntt_local_pass"],
-             "ntt_large": large["launches"]["ntt_local_pass"],
-             "distributed": dist["ntt_local_pass"],
-             "scrambled": scr["ntt_local_pass"],
-             "probe_pass": probe_pass["launches"]["ntt_local_pass"]},
-         "order_modes": {
-             "replaces": "twenty_first_tpu/math/ntt.py:941 (_local_pass "
-                         "with dif=True / norev=True: :1147, :1153); plain "
-                         "jnp, no Pallas kernel",
-             "passes": scrambled["passes"]},
-         "t7_launches_per_pass": probe_pass["k3_per_tile_launches"],
-         "three_pass": large["three_pass"],
-         "largest_ntt": large["largest"],
-         **k3, **NO_LIBRARY},
-        {"name": "ntt_stage", "route": "cuda",
-         "source": "twenty_first_tpu_torch/csrc/probes.cu",
-         "replaces": "scripts/prof_pallas_pass.py:53 (T6 roundtrip)",
-         "launches": probe_pass["launches"]["ntt_stage"],
-         **probe_pass["k4"], **NO_LIBRARY},
-        {"name": "gf_chain", "route": "cuda",
-         "source": "twenty_first_tpu_torch/csrc/probes.cu",
-         "replaces": "scripts/pallas_alu_probe.py:38 (T8)",
-         "launches": probe_alu["launches"]["gf_chain"],
-         **probe_alu["k5"], **NO_LIBRARY},
-        {"name": "coset_extrapolate_fold", "route": "cuda",
-         "source": "twenty_first_tpu_torch/csrc/poly.cu",
-         "replaces": "twenty_first_tpu/math/poly_batch.py:152 "
-                     "(_coset_extrapolate_pow_core); :226 "
-                     "(_coset_extrapolate_xfe_pow_core); plain jnp, no "
-                     "Pallas kernel",
-         "launches": (poly["launches"]["coset_extrapolate_fold"]
-                      + engine["coset_extrapolate_fold"]),
-         "launches_by_path": {
-             "poly_batch": poly["launches"]["coset_extrapolate_fold"],
-             "polynomial": engine["coset_extrapolate_fold"]},
-         **poly["k6"], **NO_LIBRARY},
-        {"name": "batch_inversion", "route": "cuda",
-         "source": "twenty_first_tpu_torch/csrc/poly.cu",
-         "replaces": "twenty_first_tpu/math/gf.py:503 (batch_inversion); "
-                     "plain jnp, no Pallas kernel",
-         "launches": (poly["launches"]["batch_inversion"]
-                      + engine["batch_inversion"]),
-         "launches_by_path": {
-             "poly_batch": poly["launches"]["batch_inversion"],
-             "polynomial": engine["batch_inversion"]},
-         **poly["k7"], **NO_LIBRARY},
-        {"name": "gf_pointwise", "route": "cuda",
-         "source": "twenty_first_tpu_torch/csrc/poly.cu",
-         "replaces": "twenty_first_tpu/math/gf_ext.py:71 (mul); :84 "
-                     "(mul_base); twenty_first_tpu/math/gf.py:444 "
-                     "(inverse_or_zero) and gf.mul; plain jnp, no Pallas "
-                     "kernel",
-         "launches": (poly["launches"]["gf_pointwise"]
-                      + engine["gf_pointwise"]),
-         "launches_by_path": {
-             "poly_batch": poly["launches"]["gf_pointwise"],
-             "polynomial": engine["gf_pointwise"]},
-         **poly["k8"], **NO_LIBRARY},
-    ]
-    print(smi, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    phase_poly_batch(rng, poly_counters)
+    phase_polynomial(poly_counters)
+    phase_host_layers((tip5_cuda.tip5_permute, tip5_cuda.merkle_level))
+    phase_ntt_large((ntt_cuda.ntt_local_pass,))
+    phase_distributed(counters)
+    phase_scrambled(counters)
+    phase_probe_pass(rng)
+    phase_probe_alu(rng)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

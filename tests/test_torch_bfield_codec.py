@@ -23,6 +23,7 @@ import twenty_first_tpu_torch.math.b_field_element as tb
 import twenty_first_tpu_torch.math.polynomial as tpoly
 import twenty_first_tpu_torch.math.x_field_element as tx
 import twenty_first_tpu_torch.tip5 as ttip5
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu_torch import native
 from twenty_first_tpu_torch.tip5 import tip5 as ttip5_mod
 

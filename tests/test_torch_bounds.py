@@ -1,25 +1,26 @@
-"""The multiply count behind chip_smoke.py's kernel bounds.
+"""The multiply count behind the benchmark's Tip5 roofline.
 
-chip_smoke.py counts Tip5's MDS layer at the fewest products of a known
-algorithm, not at the 16 x 16 products of K1's matvec: the CRT tower of the
-Tip5 reference's ``mds_cyclomul``. A cyclic convolution of length n splits
-into one of length n/2 (mod x^{n/2} - 1) and a negacyclic one (mod
-x^{n/2} + 1); a negacyclic one of length n is a product of complex
-polynomials of n/2 terms modulo x^{n/2} - i, done by Karatsuba; a complex
-multiply by a fixed factor is three products. Here the tower runs over the
-field, counting every product of an input-dependent value by a constant
-derived from the MDS column (the constants are made once, so their own
-arithmetic is not counted). It must equal the circulant matvec and use
-``chip_smoke.MDS_PRODUCTS`` products.
+port_bench/roofline.py counts Tip5's MDS layer at the fewest products of
+a known algorithm, not at the 16 x 16 products of K1's matvec: the CRT
+tower of the Tip5 reference's ``mds_cyclomul``. A cyclic convolution of
+length n splits into one of length n/2 (mod x^{n/2} - 1) and a negacyclic
+one (mod x^{n/2} + 1); a negacyclic one of length n is a product of
+complex polynomials of n/2 terms modulo x^{n/2} - i, done by Karatsuba; a
+complex multiply by a fixed factor is three products. Here the tower runs
+over the field, counting every product of an input-dependent value by a
+constant derived from the MDS column (the constants are made once, so
+their own arithmetic is not counted). It must equal the circulant matvec and use
+``roofline.MDS_PRODUCTS`` products.
 """
 
 import numpy as np
 import pytest
 
-import chip_smoke
+from port_bench import roofline
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu_torch.tip5.constants import MDS_MATRIX_FIRST_COLUMN
 
-P = chip_smoke.P
+P = (1 << 64) - (1 << 32) + 1
 HALF = pow(2, P - 2, P)
 COL = [int(c) for c in MDS_MATRIX_FIRST_COLUMN]
 
@@ -117,18 +118,19 @@ def test_tower_is_a_cyclic_convolution(n):
 
 
 def test_mds_products():
-    """The tower gives the MDS layer with MDS_PRODUCTS products; one Tip5
-    permutation then costs PRODUCTS_PER_PERM multiplies in chip_smoke.py,
-    the x^7 ones on the IMAD pipe alone."""
+    """The tower gives the MDS layer with roofline.MDS_PRODUCTS products;
+    one Tip5 permutation then costs roofline.IMAD_PER_PERM IMAD: x^7 on 12
+    words in each of 5 rounds (two squares, two products) and two of the
+    tower's convolutions a round."""
     rng = np.random.default_rng(41)
     for _ in range(4):
         state = [int(v) for v in rng.integers(0, P, 16, dtype=np.uint64)]
         mul = Products()
         assert cyclic(mul, state, COL) == matvec(state)
-        assert mul.count == chip_smoke.MDS_PRODUCTS
-    assert chip_smoke.PRODUCTS_PER_PERM == 5 * (12 * 14 + 2 * 41)
-    assert chip_smoke.POW7_PRODUCTS_PER_PERM == 840
-    assert chip_smoke.MDS_PRODUCTS_PER_PERM == 410
+        assert mul.count == roofline.MDS_PRODUCTS == 41
+    assert roofline.IMAD_PER_PERM == 5 * (12 * 14 + 2 * 41) == 1250
+    assert roofline.POW7_IMAD_PER_PERM == 840
+    assert roofline.MDS_IMAD_PER_PERM == 410
 
 
 class Tracked:
@@ -167,61 +169,6 @@ class Tracked:
 
     def __eq__(self, o):
         return self.v == self._other(o)
-
-
-def _h100_rates(monkeypatch):
-    """chip_smoke.bound's rates for 132 SMs at 1980 MHz, without a card."""
-    from twenty_first_tpu_torch.probes import timing
-
-    monkeypatch.setattr(timing, "sm_clock_mhz", lambda: (1980.0, 1980.0))
-    monkeypatch.setattr(timing, "lane_rate",
-                        lambda lanes, mhz: 132 * lanes * mhz * 1e6)
-    return 132 * 64 * 1980e6  # the IMAD rate; the FP64 rate is the same
-
-
-def test_tip5_bound_counts_the_mds_on_either_pipe(monkeypatch):
-    """The tree's floor is its x^7 products on the IMAD pipe: the MDS's
-    fit beside them on the FP64 pipe. K1's is its bytes."""
-    rate = _h100_rates(monkeypatch)
-    perms = (1 << 22) - 1
-    tree = chip_smoke.tip5_bound(40 * ((1 << 22) + 1), perms)
-    assert tree["bound_by"] == "operations"
-    assert tree["bound_ms"] == pytest.approx(840 * perms / rate * 1e3)
-    assert tree["bound_ms"] == pytest.approx(0.2106, abs=1e-4)
-    k1 = chip_smoke.tip5_bound(2 * 128 << 22, 1 << 22)
-    assert k1["bound_by"] == "bytes"
-    assert k1["bound_ms"] == pytest.approx((256 << 22) / 3.35e12 * 1e3)
-
-
-def test_bound_shares_the_either_products_between_both_pipes(monkeypatch):
-    rate = _h100_rates(monkeypatch)
-    got = chip_smoke.bound(0, 10, 1000)
-    assert got["bound_ms"] == pytest.approx(1010 / (2 * rate) * 1e3)
-    assert chip_smoke.bound(0, 1000)["bound_ms"] == pytest.approx(
-        1000 / rate * 1e3)
-
-
-def test_k9_bound_counts_its_mma_on_the_int8_tensor_cores(monkeypatch):
-    """K9's MDS is 8 u8 mma.m16n8k32 and 16 mma.m16n8k16 for each tile of
-    16 states a round, two tiles a warp, over the int8 tensor-core rate;
-    its x^7 products stay on IMAD; a ragged batch pays its last warp whole.
-    At 2^22 states its bytes bound it, as K1's do."""
-    from twenty_first_tpu_torch.probes import timing
-
-    rate = _h100_rates(monkeypatch)
-    assert chip_smoke.MMA_OPS_PER_WARP_ROUND == \
-        2 * (8 * (2 * 16 * 8 * 32) + 16 * (2 * 16 * 8 * 16))
-    got = chip_smoke.k9_bound(33)
-    assert got["bound_int8_mma_ops"] == 2 * 5 * chip_smoke.MMA_OPS_PER_WARP_ROUND
-    assert got["bound_imads"] == 840 * 33
-    assert got["bound_imad_or_fp64_products"] == 0
-    assert chip_smoke.bound(0, 0, int8_mma_ops=10**12)["bound_ms"] == \
-        pytest.approx(1e12 / timing.INT8_TENSOR_OPS_PER_S * 1e3)
-    assert chip_smoke.bound(0, 10**6, int8_mma_ops=1)["bound_ms"] == \
-        pytest.approx(10**6 / rate * 1e3)
-    big = chip_smoke.k9_bound(1 << 22)
-    assert big["bound_by"] == "bytes"
-    assert big["bound_ms"] == pytest.approx((256 << 22) / 3.35e12 * 1e3)
 
 
 #: additions and subtractions of input-dependent values in one 16-point

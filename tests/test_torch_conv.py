@@ -10,6 +10,7 @@ CPU."""
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu.math import ntt as jntt
 from twenty_first_tpu.math.b_field_element import P
 from twenty_first_tpu_torch.math import ntt

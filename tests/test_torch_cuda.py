@@ -14,6 +14,7 @@ import torch
 
 import chip_smoke
 import test_torch_dist as tdist
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu.math import gf as jgf
 from twenty_first_tpu.math import ntt as jntt
 from twenty_first_tpu.math.b_field_element import P

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu_torch.math import gf, ntt
 from twenty_first_tpu_torch.parallel import (dist_merkle, dist_mmr, dist_ntt,
                                              mesh as mesh_mod, pipeline)

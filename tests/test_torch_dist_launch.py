@@ -13,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu_torch.math import gf
 from twenty_first_tpu_torch.parallel import mesh as mesh_mod, scaling
 

@@ -7,6 +7,7 @@ import torch
 
 import __graft_entry__
 import chip_smoke
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu.math import gf as jgf
 from twenty_first_tpu.math import ntt as jntt
 from twenty_first_tpu.math.b_field_element import P, bfe

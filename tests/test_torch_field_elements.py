@@ -5,6 +5,7 @@ numpy: every case runs the same operation through both packages."""
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu import config as jconfig
 from twenty_first_tpu import errors as jerrors
 from twenty_first_tpu.math import b_field_element as jb

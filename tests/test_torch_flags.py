@@ -38,6 +38,7 @@ import torch
 
 from test_torch_dist_launch import world_of_one  # noqa: F401 (the fixture)
 from test_torch_surface import MODULES, NOT_COMPARED, _defined, _public
+from torch_threads import one_torch_thread  # noqa: F401
 
 P = (1 << 64) - (1 << 32) + 1
 TESTS = Path(__file__).resolve().parent

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu.math import b_field_element as jbfe
 from twenty_first_tpu.math import gf as jgf
 from twenty_first_tpu.math import gf_numpy as jgfn
@@ -525,6 +526,7 @@ def test_port_never_imports_jax():
             "twenty_first_tpu_torch.tip5.blake3_mini",
             "twenty_first_tpu_torch.tip5.constants",
             "twenty_first_tpu_torch.probes.merkle_probe",
+            "twenty_first_tpu_torch.probes.polynomial_probe",
             "twenty_first_tpu_torch.parallel",
             "twenty_first_tpu_torch.parallel.mesh",
             "twenty_first_tpu_torch.parallel.dist_ntt",

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu.math import gf as jgf
 from twenty_first_tpu.math import gf_ext as jgfe
 from twenty_first_tpu.math import xgf_numpy as jxgf

@@ -10,6 +10,7 @@ import pytest
 
 import twenty_first_tpu.math.lattice as jlat
 import twenty_first_tpu_torch.math.lattice as tlat
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu_torch import errors as terrors
 from twenty_first_tpu_torch.math.b_field_element import P, bfe
 

@@ -13,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu import errors as jerrors
 from twenty_first_tpu.util_types import merkle_tree as jmt
 from twenty_first_tpu_torch import errors as terrors

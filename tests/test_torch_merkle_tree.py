@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu import config as jconfig
 from twenty_first_tpu import errors as jerrors
 from twenty_first_tpu.math import b_field_element as jb

@@ -9,6 +9,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu import config as jconfig
 from twenty_first_tpu.math import b_field_element as jb
 from twenty_first_tpu.tip5 import digest as jdigest

@@ -8,6 +8,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu import native as jnative
 from twenty_first_tpu.math import ntt as jntt
 from twenty_first_tpu_torch import native as tnative

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu.math import gf as jgf
 from twenty_first_tpu.math import gf_numpy as jgfn
 from twenty_first_tpu.math import ntt as jntt

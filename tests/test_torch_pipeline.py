@@ -7,6 +7,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu.math import gf as jgf
 from twenty_first_tpu.math import gf_numpy as jgfn
 from twenty_first_tpu.math import ntt as jntt

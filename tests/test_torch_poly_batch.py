@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 import chip_smoke
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu.math import poly_batch as jpb
 from twenty_first_tpu.math.b_field_element import P
 from twenty_first_tpu_torch.math import gf, gf_ext, ntt, poly_batch

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu import errors as jerr
 from twenty_first_tpu.math import field_list as jfl
 from twenty_first_tpu.math import ntt as jntt
@@ -39,6 +40,7 @@ from twenty_first_tpu_torch.math.b_field_element import BFieldElement as TB
 from twenty_first_tpu_torch.math.b_field_element import bfe as tbfe
 from twenty_first_tpu_torch.math.x_field_element import XFieldElement as TX
 from twenty_first_tpu_torch.math.x_field_element import xfe as txfe
+from twenty_first_tpu_torch.probes import polynomial_probe
 
 P = 0xFFFF_FFFF_0000_0001
 EXTRAPOLATE_KNOB = "TWENTY_FIRST_TPU_EXTRAPOLATE_DEVICE"
@@ -477,6 +479,6 @@ def test_pinned_polynomial_is_jax_s():
     port's on the card's routes (run here on the CPU)."""
     want = chip_smoke.PINNED_POLYNOMIAL
     assert chip_smoke.polynomial_pin(JAX) == want
-    with chip_smoke.card_routes("cpu"):
+    with polynomial_probe.card_routes("cpu"):
         assert chip_smoke.polynomial_pin(PORT) == want
     assert tntt.HOST_NTT_MAX_ELEMS > 0 and tntt.DEVICE == "cuda"

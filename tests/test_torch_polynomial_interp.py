@@ -10,6 +10,7 @@ import pytest
 from test_torch_polynomial import (FIELDS, JAX, PORT, both, both_raise,
                                    plain, poly, port_side, rand)
 from test_torch_polynomial import route  # noqa: F401  (the fixture)
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu.math import polynomial as jpoly
 from twenty_first_tpu_torch.math import polynomial as tpoly
 

@@ -18,6 +18,7 @@ import twenty_first_tpu.prelude as jprelude
 import twenty_first_tpu_torch
 import twenty_first_tpu_torch.math.other as tother
 import twenty_first_tpu_torch.prelude as tprelude
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 SUBPACKAGES = ("errors", "math", "tip5", "util_types", "config", "prelude")

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu.math import gf as jgf
 from twenty_first_tpu.math import gf_numpy as jgfn
 from twenty_first_tpu.math import ntt as jntt
@@ -26,18 +27,6 @@ from twenty_first_tpu.parallel import pipeline as jpipeline
 from twenty_first_tpu_torch.math import gf, ntt
 from twenty_first_tpu_torch.ops import ntt_cuda
 from twenty_first_tpu_torch.parallel import pipeline
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's torch work: the tier-1 run
-    puts several test workers on the CPU's cores, and a thread pool of
-    every core in each oversubscribes them (this module's 2^17 transforms
-    took 20-40 s a case that way, 0.3 s alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rand(seed: int, shape) -> np.ndarray:

@@ -22,6 +22,7 @@ import types
 import pytest
 
 import twenty_first_tpu
+from torch_threads import one_torch_thread  # noqa: F401
 
 #: Parameters of a JAX function that its port does not accept, by (module,
 #: function): {JAX name: the port's parameter in its place, or None}, and

@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu.math import gf as jgf
 from twenty_first_tpu.math.b_field_element import P, R, R_INV, bfe
 from twenty_first_tpu.tip5 import Digest, Tip5

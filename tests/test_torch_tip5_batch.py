@@ -8,6 +8,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu.math.b_field_element import P, bfe
 from twenty_first_tpu.ops import tip5_pallas
 from twenty_first_tpu.tip5 import Digest, Tip5

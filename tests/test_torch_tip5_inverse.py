@@ -15,6 +15,7 @@ import twenty_first_tpu.tip5.blake3_mini as jblake
 import twenty_first_tpu.tip5.constants as jconst
 import twenty_first_tpu.tip5.inverse as jinv
 import twenty_first_tpu.tip5.permutation as jperm
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu_torch.math import gf
 from twenty_first_tpu_torch.math.b_field_element import P
 from twenty_first_tpu_torch.tip5 import InverseTip5, Tip5

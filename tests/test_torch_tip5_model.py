@@ -12,6 +12,7 @@ package, on random words and on edge words, lazy ones (>= p) included.
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu.tip5 import permutation as jperm
 from twenty_first_tpu_torch.math import gf
 from twenty_first_tpu_torch.tip5 import permutation as tperm

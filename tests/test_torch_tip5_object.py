@@ -6,6 +6,7 @@ native host core where it is built."""
 import numpy as np
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu import errors as jerrors
 from twenty_first_tpu.math.b_field_element import P, R, R_INV, bfe
 from twenty_first_tpu.tip5 import digest as jdigest

@@ -11,6 +11,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
+from torch_threads import one_torch_thread  # noqa: F401
 from twenty_first_tpu_torch import spans
 from twenty_first_tpu_torch.math import gf
 from twenty_first_tpu_torch.math import ntt

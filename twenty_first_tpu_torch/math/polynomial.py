@@ -114,8 +114,9 @@ def _fmul_scalar(arr, s, x: bool):
 
 # Above this many elements a batch inversion goes to ntt.DEVICE (K7): the
 # card's round trip beats the native Montgomery inversion from 2^13
-# elements on an H100's host (chip_smoke.py's crossover sweep, PERF.md
-# section 6).
+# elements on an H100's host (the crossover sweep of
+# probes/polynomial_probe.py; its reading is in PERF.md section 6, with
+# the port's bring-up).
 HOST_INVERSE_MAX_ELEMS = 1 << 12
 
 

@@ -2,7 +2,7 @@
 shapes.
 
 At (1, 2^20) and (8, 2^20) (one and eight rows of 2^20 determinants, one
-of them with a 0 in row 3, as ``chip_smoke.py`` times them) it checks K7
+of them with a 0 in row 3, as ``chip_smoke.py`` checks them) it checks K7
 against its plain twin and prints one JSON line: the call's device time
 (``timing.cuda_ms``, median of 10), its host-inclusive time, and each
 device kernel of the call by name with its device time a launch, from

@@ -7,8 +7,8 @@ copy, a K2 launch a level). The two are timed in turns, one call each, so
 that a change in the host's load lands on both; their roots must agree. It
 prints one JSON line: the medians by size, ``host_up_to`` (the largest size
 at which the host's median is at least as fast) and the cut in force.
-``chip_smoke.py`` runs the same sweep inside its ``host_layers`` phase;
-this module runs it in a fresh process.
+Its reading on an H100's host set the default (PERF.md section 6, with
+the port's bring-up).
 
     python -m twenty_first_tpu_torch.probes.merkle_probe
 """

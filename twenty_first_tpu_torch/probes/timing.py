@@ -1,5 +1,5 @@
 """CUDA-event timing and the card's identity and rates, shared by the
-probes and chip_smoke.py."""
+probes."""
 
 from __future__ import annotations
 

@@ -57,10 +57,11 @@ MAX_TREE_HEIGHT = 24
 
 # Host leafs of up to this many rows are hashed on the host (the native
 # core), above on the device: the JAX package's name and environment
-# variable, with the default from chip_smoke.py's sweep of host against card
-# wall time on an H100's host, numpy in and out, the node tensor's copy
-# included (PERF.md section 6). The JAX package's 2^21 was tuned to
-# a TPU's transfer link.
+# variable, with the default from the sweep of host against card wall time
+# that probes/merkle_probe.py runs on an H100's host, numpy in and out, the
+# node tensor's copy included (its reading is in PERF.md section 6, with
+# the port's bring-up). The JAX package's 2^21 was tuned to a TPU's
+# transfer link.
 HOST_MERKLE_MAX_LEAFS = int(os.environ.get(
     "TWENTY_FIRST_TPU_HOST_MERKLE_MAX_LEAFS", str(1 << 7)))
 
